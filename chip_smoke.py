@@ -1,0 +1,508 @@
+#!/usr/bin/env python3
+"""Smoke test of gpgradpy_torch on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines; any failure exits non-zero:
+  1. card: name and power limit (nvidia-smi), TF32 off;
+  2. build: the CUDA kernels K1/K2 from gpgradpy_torch/csrc with nvcc;
+  3. kernel checks: K1 and K2 against their plain PyTorch versions on the
+     card, 3 families x f32/f64 x square/rectangular/ragged x batched;
+  4. main path, through the GaussianProcess facade in f64: a d=10,
+     n_eval=200 Rosenbrock fit (twice; the second is timed warm) and
+     prediction with gradients at 128 held-out points, the same fit with
+     RatQu (alpha fitted), then the bench.py problem (d=4, n_eval=64)
+     against its RMSE gate, and small fits (3 families, 'base', float32)
+     compared with the port's CPU path.  Each path runs with the launch
+     counts set to 0 just before it, prints its own K1/K2 counts and fails
+     unless both launched;
+  5. times at the main path's shape with CUDA events: each kernel beside
+     its bound and its plain version, KernGradFn's RatQu backward with and
+     without alpha, and one Cholesky for context; the warm d=10 fit
+     repeated; one warm d=10 fit under torch.profiler, its device time by
+     layer.
+A "[summary]" JSON line gathers the results.  The line before the last is
+a JSON object {"kernels": [...]} whose launch counts are those of the warm
+d=10 fit + predict; the last line is {"ok": true, "device": {...}}.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+PEAK_FLOPS = {"float64": 34e12,    # H100 SXM data sheet, FP64 outside the
+              "float32": 67e12}    # tensor cores; FP32 likewise
+SOURCE = "gpgradpy_torch/csrc/kern_assembly.cu"
+REPLACES = {"K1": "gpgradpy_tpu/ops/pallas_assembly.py:224",
+            "K2": "gpgradpy_tpu/ops/pallas_assembly.py:416"}
+TOL = {  # max |kernel - plain| / max |plain|
+    # K1: one transcendental and a d-term sum per element, so a few ulp of
+    # the largest entry
+    ("K1", "float64"): 1e-12, ("K1", "float32"): 2e-6,
+    # K2: a sum of (1+d)^2 n1 n2 signed terms (4.8M at the main path's
+    # shape) taken in another order than autograd's; the f32 bound allows
+    # eps * sqrt(terms) growth against the cancelling sum
+    ("K2", "float64"): 1e-10, ("K2", "float32"): 1e-3,
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def phase_card(torch):
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    smi = smi.splitlines()[0]
+    log(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[card] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}"
+        f" | torch {torch.__version__} cuda {torch.version.cuda} | tf32 "
+        f"matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+    return smi
+
+
+def phase_build(ca):
+    t0 = time.perf_counter()
+    path = ca.build()
+    ca._load()
+    log(f"[build] {path.name} in {time.perf_counter() - t0:.2f} s "
+        f"(nvcc {ca.build_seconds:.2f} s)")
+    for line in ca.build_log.splitlines():
+        if "registers" in line or "spill" in line or "error" in line:
+            log("[build]   " + line.strip())
+
+
+def _inputs(torch, rng, n1, n2, d, B, dtype, kernel_type, same):
+    dev = "cuda"
+    x1 = rng.uniform(-2, 2, (n1, d))
+    x2 = x1 if same else rng.uniform(-2, 2, (n2, d))
+    shape = (d,) if B is None else (B, d)
+    theta = 10.0 ** rng.uniform(-2, 0, shape)
+    alpha = None
+    if kernel_type == "RatQu":
+        alpha = 2.0 if B is None else rng.uniform(0.5, 5.0, B)
+    rows = 1 if B is None else B
+    gbar = rng.standard_normal((rows, (d + 1) * n1, (d + 1) * n2))
+    if B is None:
+        gbar = gbar[0]
+
+    def t(a):
+        return None if a is None else torch.as_tensor(a, dtype=dtype, device=dev)
+    return t(x1), t(x2), t(theta), t(alpha), t(gbar)
+
+
+def phase_kernels(torch, ca):
+    """K1/K2 against their plain versions; returns the max abs errors at the
+    main path's shapes (f64, n=200, d=10)."""
+    rng = np.random.default_rng(0)
+    cases = [  # (n1, n2, d, B, same points)
+        (37, 37, 3, None, True),     # ragged, square
+        (37, 20, 3, 3, False),       # ragged, rectangular, batched
+        (200, 200, 10, None, True),  # main path: L-BFGS / setup_eval
+        (200, 128, 10, None, False), # main path width, rectangular
+        (200, 200, 10, 41, True),    # main path: hp_best scan batch
+    ]
+    worst = {"K1": 0.0, "K2": 0.0}
+    ok = True
+    for kt in ("SqExp", "Ma5f2", "RatQu"):
+        for dt in (torch.float64, torch.float32):
+            dname = str(dt).split(".")[-1]
+            for n1, n2, d, B, same in cases:
+                x1, x2, th, al, gb = _inputs(torch, rng, n1, n2, d, B, dt, kt,
+                                             same)
+                got = ca.kern_grad(kt, x1, x2, th, al)
+                want = ca.kern_grad_plain(kt, x1, x2, th, al)
+                g_got = ca.kern_grad_vjp_theta(kt, x1, x2, th, al, gb)
+                g_want = ca.kern_grad_vjp_theta_plain(kt, x1, x2, th, al, gb)
+                torch.cuda.synchronize()
+                for name, a, b in (("K1", got, want), ("K2", g_got, g_want)):
+                    abs_err = float((a - b).abs().max())
+                    rel = abs_err / float(b.abs().max())
+                    good = (a.shape == b.shape and bool(torch.isfinite(a).all())
+                            and rel <= TOL[(name, dname)])
+                    ok &= good
+                    if dt == torch.float64 and (n1, n2, d) == (200, 200, 10):
+                        worst[name] = max(worst[name], abs_err)
+                    log(f"[check] {name} {kt:5s} {dname} n1={n1} n2={n2} d={d} "
+                        f"B={B} max_abs={abs_err:.3e} rel={rel:.3e} "
+                        f"tol={TOL[(name, dname)]:.0e} "
+                        f"{'ok' if good else 'FAIL'}")
+                del got, want, g_got, g_want, gb
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("kernel check failed")
+    return worst
+
+
+def _rosen_problem(rosenbrock, n, d, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-2, 2, (n, d))
+    f, g = rosenbrock(x)
+    x_test = rng.uniform(-2, 2, (128, d))
+    f_test, g_test = rosenbrock(x_test)
+    return x, f, g, x_test, f_test, g_test
+
+
+def _fit(GaussianProcess, x, f, g, kernel_type="SqExp", wellcond="precon",
+         device="cuda", **kw):
+    """One refit through the facade, as a BO step makes it."""
+    n, d = x.shape
+    gp = GaussianProcess(d, True, kernel_type, wellcond, device=device, **kw)
+    gp.init_optz_surr(2)
+    gp.set_data(x, f, np.zeros(n), g, np.zeros((n, d)))
+    gp.set_hpara("optz", 0)
+    return gp
+
+
+def _path(torch, ca, name, fn):
+    """Drive one path with the launch counts set to 0 just before it and read
+    just after; fails unless both K1 and K2 launched in it.  Returns fn's
+    result, the path's wall seconds and its counts."""
+    torch.cuda.synchronize()
+    ca.reset_launches()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {"K1": ca.kern_grad.launches, "K2": ca.kern_grad_vjp_theta.launches}
+    log(f"[path] {name}: {secs:.3f} s, launches K1 {counts['K1']} "
+        f"K2 {counts['K2']}")
+    if min(counts.values()) < 1:
+        raise SystemExit(f"a kernel of the path '{name}' never launched")
+    return res, secs, counts
+
+
+def phase_main(torch, ca, GaussianProcess, rosenbrock):
+    out = {}
+    # d=10, n_eval=200: the size of the repo's d=10 BO traces
+    d, n = 10, 200
+    x, f, g, xt, ft, _ = _rosen_problem(rosenbrock, n, d)
+    # the same fit twice, as bench.py does: the first pays the libraries'
+    # start-up in this process, the second is the warm one a BO step sees
+    _, t_first, _ = _path(torch, ca, "d=10 first fit",
+                          lambda: _fit(GaussianProcess, x, f, g))
+
+    def warm_fit_and_predict():
+        t0 = time.perf_counter()
+        gp = _fit(GaussianProcess, x, f, g)
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        return gp, t_fit, gp.eval_model(xt, calc_grad=True)[:4]
+
+    (gp, t_warm, pred), _, counts = _path(
+        torch, ca, "d=10 warm fit + eval_model at 128 points",
+        warm_fit_and_predict)
+    h = gp.history
+    tele = {k: float(getattr(h, k)[0]) for k in (
+        "hp_optz_success", "hp_optz_iter_mean", "hp_optz_iter_max",
+        "optz_n_cho_fail", "optz_max_init_cond", "Kcov_cond", "time_chofac")}
+    mu, sig, dmu, dsig = pred
+    finite = all(np.all(np.isfinite(a)) for a in (mu, sig, dmu, dsig))
+    shapes = (mu.shape, sig.shape, dmu.shape, dsig.shape)
+    rmse10 = float(np.sqrt(np.mean((mu - ft) ** 2)))
+    log(f"[main] d={d} n_eval={n} n_data={(d + 1) * n} f64: first fit "
+        f"{t_first:.3f} s, warm fit {t_warm:.3f} s, -lnL {-h.ln_lkd[0]:.10g}")
+    log(f"[main] theta {np.array2string(np.asarray(gp.hp_vals.theta.cpu()), precision=4)}")
+    log(f"[main] telemetry {json.dumps(tele)}")
+    log(f"[main] eval_model 128 held-out: shapes {shapes} finite {finite} "
+        f"rmse {rmse10:.6g} (std f_test {np.std(ft):.6g})")
+    if not (finite and shapes == ((128,), (128,), (128, d), (128, d))
+            and np.isfinite(h.ln_lkd[0])):
+        raise SystemExit("main path d=10 output is not finite / misshapen")
+    out.update(t_first=t_first, t_warm=t_warm, launches=counts,
+               neg_lnL=-float(h.ln_lkd[0]), iters=tele["hp_optz_iter_max"])
+
+    # RatQu at the same size: alpha is fitted, so each objective gradient
+    # also runs the plain closed form's autograd for alpha on the card
+    # (KernGradFn.backward).  Its warm fit time per K2 launch (one per
+    # objective gradient) against SqExp's shows what that costs.
+    for rep in ("first", "warm"):
+        gp_rq, t_rq, c_rq = _path(
+            torch, ca, f"d=10 RatQu {rep} fit",
+            lambda: _fit(GaussianProcess, x, f, g, kernel_type="RatQu"))
+    rq_ms = 1e3 * t_rq / c_rq["K2"]
+    sq_ms = 1e3 * t_warm / counts["K2"]
+    log(f"[main] RatQu d=10 warm fit {t_rq:.3f} s, -lnL "
+        f"{-gp_rq.history.ln_lkd[0]:.10g}, alpha {float(gp_rq.hp_vals.kernel):.6g}:"
+        f" {rq_ms:.2f} ms per objective gradient against SqExp's {sq_ms:.2f} ms")
+    if not np.isfinite(gp_rq.history.ln_lkd[0]):
+        raise SystemExit("RatQu d=10 fit is not finite")
+    out.update(t_ratqu=t_rq, ratqu_launches=c_rq, ratqu_ms_per_grad=rq_ms,
+               sqexp_ms_per_grad=sq_ms)
+
+    # bench.py's problem and quality gate (bench.py:38-45, 458-465)
+    d, n = 4, 64
+    x, f, g, xt, ft, _ = _rosen_problem(rosenbrock, n, d)
+    mu, t_bench, c_bench = _path(
+        torch, ca, "bench problem d=4 n_eval=64 fit + predict",
+        lambda: _fit(GaussianProcess, x, f, g).eval_model(xt)[0])
+    rmse = float(np.sqrt(np.mean((mu - ft) ** 2)))
+    gate = 0.01 * float(np.std(ft))
+    log(f"[main] bench problem d=4 n_eval=64: rmse {rmse:.6g} gate {gate:.6g} "
+        f"{'ok' if rmse < gate else 'FAIL'}")
+    if not rmse < gate:
+        raise SystemExit("bench-problem RMSE above the gate")
+    out.update(rmse_bench=rmse, t_bench=t_bench, bench_launches=c_bench)
+
+    # the card's path against the port's CPU path on small inputs: each
+    # kernel family (RatQu also takes its alpha gradient on the card), the
+    # 'base' method and float32.  The fits may stop a few L-BFGS steps apart
+    # on a flat optimum, so -ln L is compared to rtol 1e-6 (f32: 1e-3) and
+    # the predicted mean to 1e-4 of its scale (f32: 1e-2).
+    d, n = 3, 20
+    x, f, g, xt, _, _ = _rosen_problem(rosenbrock, n, d, seed=1)
+    cases = [("SqExp", "precon", "float64"), ("Ma5f2", "precon", "float64"),
+             ("RatQu", "precon", "float64"), ("SqExp", "base", "float64"),
+             ("SqExp", "precon", "float32")]
+    bad = []
+    for kt, wc, dt in cases:
+        kw = dict(dtype=dt, cond_max_target=1e6 if dt == "float32" else 1e10)
+
+        def fit_predict(dev):
+            gp = _fit(GaussianProcess, x, f, g, kt, wc, device=dev, **kw)
+            return gp.history.ln_lkd[0], gp.eval_model(xt)[0]
+        res = {"cuda": _path(torch, ca, f"small fit {kt} {wc} {dt}",
+                             lambda: fit_predict("cuda"))[0],
+               "cpu": fit_predict("cpu")}
+        dl = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+        dmu = float(np.max(np.abs(res["cuda"][1] - res["cpu"][1]))
+                    / np.max(np.abs(res["cpu"][1])))
+        tl, tm = (1e-3, 1e-2) if dt == "float32" else (1e-6, 1e-4)
+        good = dl < tl and dmu < tm
+        bad += [] if good else [(kt, wc, dt)]
+        log(f"[main] small fit {kt} {wc} {dt} d={d} n_eval={n}, card vs CPU "
+            f"path: lnL rel {dl:.3e} (tol {tl:.0e}), mu rel {dmu:.3e} "
+            f"(tol {tm:.0e}) {'ok' if good else 'FAIL'}")
+    if bad:
+        raise SystemExit(f"card path disagrees with the CPU path: {bad}")
+    return out
+
+
+def _time_ms(torch, fn, reps, flush):
+    """Mean device time of fn over reps calls, L2 flushed before each."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / reps
+
+
+def phase_times(torch, ca, KernGradFn):
+    """Kernel rows {(name, batch): times} and the context times {name: ms}."""
+    rng = np.random.default_rng(1)
+    # 512 MB: larger than the 50 MB L2, and its clearing keeps the card busy
+    # while the host enqueues the timed call, so the events time the device
+    flush = torch.empty(2 ** 29, dtype=torch.uint8, device="cuda")
+    rows, ctx = {}, {}
+    d, n = 10, 200
+    for B in (None, 41):
+        x1, x2, th, al, gb = _inputs(torch, rng, n, n, d, B, torch.float64,
+                                     "SqExp", True)
+        nb = 1 if B is None else B
+        reps = 20 if B is None else 5
+        fns = {
+            "K1": (lambda: ca.kern_grad("SqExp", x1, x1, th),
+                   lambda: ca.kern_grad_plain("SqExp", x1, x1, th)),
+            "K2": (lambda: ca.kern_grad_vjp_theta("SqExp", x1, x1, th, None, gb),
+                   lambda: ca.kern_grad_vjp_theta_plain("SqExp", x1, x1, th,
+                                                        None, gb)),
+        }
+        for name, (kern, plain) in fns.items():
+            ms = _time_ms(torch, kern, reps, flush)
+            plain_ms = _time_ms(torch, plain, reps, flush)
+            A2 = (d + 1) ** 2
+            nbytes = nb * A2 * n * n * 8 + (2 * n * d + nb * d + nb) * 8
+            pairs = nb * n * n
+            nflop = pairs * (3 * d + 12 + (6 if name == "K1" else 12) * A2)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = nflop / PEAK_FLOPS["float64"] * 1e3
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       bytes=nbytes, flops=nflop)
+            rows[(name, nb)] = row
+            log(f"[time] {name} SqExp f64 n=200 d=10 B={nb}: {ms:.4f} ms "
+                f"(bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+                f"{nbytes / ms / 1e6:.1f} GB/s = "
+                f"{100 * row['bound_ms'] / ms:.1f}% of bound) | plain "
+                f"{plain_ms:.4f} ms | library call: none computes this function")
+        del x1, x2, th, gb
+
+    # KernGradFn forward + backward for RatQu at the same shape: the theta
+    # cotangent alone (K1 + K2) against theta and alpha (K1 + K2 + autograd
+    # of the plain closed form for alpha), which a fit with alpha fitted
+    # runs once per objective gradient
+    x1, _, th, al, gb = _inputs(torch, rng, n, n, d, None, torch.float64,
+                                "RatQu", True)
+
+    def fwd_bwd(with_alpha):
+        t = th.detach().requires_grad_(True)
+        a = al.detach().requires_grad_(with_alpha)
+        K = KernGradFn.apply("RatQu", x1, t, a)
+        return torch.autograd.grad(K, [t, a] if with_alpha else [t], gb)
+    ctx["ratqu_theta_ms"] = _time_ms(torch, lambda: fwd_bwd(False), 10, flush)
+    ctx["ratqu_alpha_ms"] = _time_ms(torch, lambda: fwd_bwd(True), 10, flush)
+    log(f"[time] KernGradFn RatQu f64 n=200 d=10 forward + backward: theta "
+        f"only {ctx['ratqu_theta_ms']:.4f} ms, theta and alpha "
+        f"{ctx['ratqu_alpha_ms']:.4f} ms")
+    del x1, th, al, gb
+
+    N = (d + 1) * n
+    A = torch.as_tensor(rng.standard_normal((N, N)), device="cuda")
+    A = A @ A.T + N * torch.eye(N, dtype=A.dtype, device="cuda")
+    ctx["chol_ms"] = _time_ms(torch, lambda: torch.linalg.cholesky_ex(A), 10,
+                               flush)
+    log(f"[time] context: torch.linalg.cholesky_ex f64 {N}x{N}: "
+        f"{ctx['chol_ms']:.4f} ms")
+    return rows, ctx
+
+
+def phase_fit_repeats(torch, GaussianProcess, rosenbrock, reps=5):
+    """The warm d=10 fit repeated in this process: wall seconds of each."""
+    d, n = 10, 200
+    x, f, g, _, _, _ = _rosen_problem(rosenbrock, n, d)
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        _fit(GaussianProcess, x, f, g)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    log(f"[repeat] warm fit d=10 n_eval=200 x{reps}: median "
+        f"{np.median(walls):.3f} s, min {min(walls):.3f} s, max "
+        f"{max(walls):.3f} s ({', '.join(f'{w:.3f}' for w in walls)})")
+    return walls
+
+
+GROUPS = (  # kernel-name keywords -> layer, for the fit's time breakdown
+    ("K1 covariance assembly", ("kern_grad_kernel",)),
+    ("K2 theta-cotangent", ("kern_vjp_theta",)),
+    ("Cholesky (potrf)", ("potrf", "getrf")),
+    ("eigh (telemetry cond)", ("syevd", "syev", "sytrd", "stedc", "orgtr",
+                               "ormtr", "steqr", "larf")),
+    ("triangular solves / products", ("trsm", "trsv", "gemm", "gemv", "syrk",
+                                      "herk", "trmm", "dot")),
+)
+
+
+def phase_profile(torch, GaussianProcess, rosenbrock):
+    """One warm d=10 fit under torch.profiler: device time by kernel and the
+    device's busy share of that same fit's wall time.  Returns (device ms,
+    wall ms), or None where the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    d, n = 10, 200
+    x, f, g, _, _, _ = _rosen_problem(rosenbrock, n, d)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _fit(GaussianProcess, x, f, g)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels, copies); the CPU-side aten ops also
+    # report the device time of what they launched, which would count twice
+    events = [e for e in prof.key_averages()
+              if e.device_type != DeviceType.CPU and e.self_device_time_total > 0
+              and "Buffer Flush" not in e.key]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if not events:
+        log("[profile] the profiler recorded no device time: not measured")
+        return None
+    log(f"[profile] warm fit d=10 n_eval=200 under the profiler: wall "
+        f"{wall_ms:.1f} ms, device busy {dev_ms:.1f} ms "
+        f"({100 * dev_ms / wall_ms:.1f}%), idle {100 * (1 - dev_ms / wall_ms):.1f}%")
+    grouped = {name: 0.0 for name, _ in GROUPS}
+    grouped["other device work"] = 0.0
+    for e in events:
+        key = next((name for name, kws in GROUPS
+                    if any(k in e.key.lower() for k in kws)), "other device work")
+        grouped[key] += e.self_device_time_total / 1e3
+    for name, ms in sorted(grouped.items(), key=lambda kv: -kv[1]):
+        log(f"[profile]   {name:32s} {ms:9.2f} ms {100 * ms / dev_ms:5.1f}%")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"[profile]   top {e.self_device_time_total / 1e3:8.2f} ms "
+            f"x{e.count:5d} {e.key[:90]}")
+    return dev_ms, wall_ms
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from gpgradpy_torch import GaussianProcess
+    from gpgradpy_torch.bo.problems import rosenbrock
+    from gpgradpy_torch.model.assembly import KernGradFn
+    from gpgradpy_torch.ops import cuda_assembly as ca
+
+    t_start = time.perf_counter()
+    smi = phase_card(torch)
+    phase_build(ca)
+    worst = phase_kernels(torch, ca)
+    main_out = phase_main(torch, ca, GaussianProcess, rosenbrock)
+    rows, ctx = phase_times(torch, ca, KernGradFn)
+    walls = phase_fit_repeats(torch, GaussianProcess, rosenbrock)
+    prof = phase_profile(torch, GaussianProcess, rosenbrock)
+
+    # the results in one line near the end, so that a cut-off tail keeps them
+    summary = {
+        "card": smi,
+        "d10_first_fit_s": main_out["t_first"],
+        "d10_warm_fit_s": main_out["t_warm"],
+        "d10_warm_fit_repeats_s": walls,
+        "d10_neg_lnL": main_out["neg_lnL"],
+        "d10_lbfgs_iters": main_out["iters"],
+        "launches": {"d10 warm fit + predict": main_out["launches"],
+                     "d10 RatQu warm fit": main_out["ratqu_launches"],
+                     "bench d4 fit + predict": main_out["bench_launches"]},
+        "ratqu_warm_fit_s": main_out["t_ratqu"],
+        "ms_per_objective_gradient": {"SqExp": main_out["sqexp_ms_per_grad"],
+                                      "RatQu": main_out["ratqu_ms_per_grad"]},
+        "kerngradfn_ratqu_ms": {"theta": ctx["ratqu_theta_ms"],
+                                "theta+alpha": ctx["ratqu_alpha_ms"]},
+        "bench_rmse": main_out["rmse_bench"],
+        "kernel_ms": {f"{k}_B{b}": {kk: r[kk] for kk in ("ms", "plain_ms",
+                                                         "bound_ms")}
+                      for (k, b), r in rows.items()},
+        "cholesky_ms": ctx["chol_ms"],
+    }
+    if prof is not None:
+        dev_ms, wall_ms = prof
+        summary["profiled_fit"] = {"device_ms": dev_ms, "wall_ms": wall_ms,
+                                   "idle_share": 1 - dev_ms / wall_ms}
+    log("[summary] " + json.dumps(summary))
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+
+    names = {"K1": "kern_grad (gradient-enhanced covariance)",
+             "K2": "kern_grad_vjp_theta (theta-cotangent of K1)"}
+    kernels = []
+    for k in ("K1", "K2"):
+        r = rows[(k, 1)]
+        kernels.append({
+            "name": f"{k} {names[k]}", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[k], "launches": main_out["launches"][k],
+            "max_abs_err": worst[k], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

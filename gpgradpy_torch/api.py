@@ -1,0 +1,459 @@
+"""Stateful ``GaussianProcess`` facade over the functional core
+(counterpart of ``gpgradpy_tpu/api.py``, dense solver, 'precon' and 'base').
+
+Same constructor, option surface (constructor kwargs and mutable
+attributes) and methods as the JAX package's facade.  The model lives on
+one torch device: ``device="cuda"`` (the default) or ``device="cpu"``.
+Without a card the facade raises unless the CPU is asked for; it never
+moves to the CPU by itself.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import convert
+from .config import GpConfig
+from .fit import multistart
+from .fit.history import FitHistory
+from .model import conditioning, likelihood, predict
+from .ops import rtensor
+from .types import (DataSpec, GpData, HpInfo, Hypers, hp_vec_to_hypers,
+                    hypers_to_hp_vec, make_data_spec)
+
+_CFG_FIELDS = {f.name for f in dataclasses.fields(GpConfig)}
+
+
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class GaussianProcess:
+
+    def __init__(self, dim: int, use_grad: bool,
+                 kernel_type: str = "SqExp",
+                 wellcond_mtd: str = "precon",
+                 mean_fun_type: str = "poly_ord_0",
+                 path_data_surr: str = "baye_data_surr",
+                 surr_name: str = "obj_",
+                 device="cuda",
+                 **config_overrides):
+        assert isinstance(dim, int), "dim must be an integer"
+        assert isinstance(use_grad, bool), "use_grad must be of type bool"
+        assert isinstance(kernel_type, str), "kernel_type must be of type str"
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "GaussianProcess: no CUDA device is available; pass "
+                "device='cpu' to run on the CPU")
+
+        if wellcond_mtd is None:
+            wellcond_mtd = "base"
+
+        object.__setattr__(self, "_overrides", {})
+        self._overrides.update(
+            dim=dim, use_grad=use_grad, kernel_type=kernel_type,
+            wellcond_mtd=wellcond_mtd, mean_fun_type=mean_fun_type,
+            **config_overrides)
+        self._cfg_cache = None
+        self.device = device
+        self.cfg  # validate the options now
+
+        self.path_data_surr = path_data_surr
+        self.surr_name = surr_name
+        self.path_surr_npz = path_data_surr + ".npz"
+
+        self.spec: Optional[DataSpec] = None
+        self.data: Optional[GpData] = None
+        self.hp_vals: Optional[Hypers] = None
+        self.hp_info_optz_lkd: Optional[HpInfo] = None
+        self.history: Optional[FitHistory] = None
+        self._eval_state = None
+        self._hp_vals_model_setup = None
+        self._eta_Kbase = self._eta_Kgrad = self._etaK = np.nan
+        self._vmin_init = np.nan
+        self._time_chofac = 0.0
+        self._time_chofac_last = np.nan
+        self._fit_seed = 1
+
+    # ------------------------------------------------------------------
+    # config plumbing: option surface as mutable attributes
+    # ------------------------------------------------------------------
+
+    def __setattr__(self, name, value):
+        if name in _CFG_FIELDS:
+            self._overrides[name] = value
+            object.__setattr__(self, "_cfg_cache", None)
+        else:
+            object.__setattr__(self, name, value)
+
+    def __getattr__(self, name):
+        # only called when normal lookup fails
+        if name in _CFG_FIELDS:
+            return getattr(self.cfg, name)
+        raise AttributeError(name)
+
+    @property
+    def cfg(self) -> GpConfig:
+        if self._cfg_cache is None:
+            ov = dict(self._overrides)
+            for rng in ("hp_theta_range", "hp_varK_range", "hp_var_fval_range",
+                        "hp_var_fgrad_range"):
+                if rng in ov:
+                    ov[rng] = tuple(ov[rng])
+            cfg = GpConfig(**ov)
+            cfg.check_ported()
+            object.__setattr__(self, "_cfg_cache", cfg)
+        return self._cfg_cache
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.float64 if self.cfg.dtype == "float64" else torch.float32
+
+    def _tensor(self, v):
+        return torch.as_tensor(np.asarray(v), dtype=self.dtype,
+                               device=self.device)
+
+    @property
+    def b_use_cond_cstr(self):
+        return self.cfg.b_use_cond_cstr
+
+    @property
+    def b_has_noisy_data(self):
+        return None if self.spec is None else self.spec.b_has_noisy_data
+
+    @property
+    def n_data(self):
+        return self.spec.n_data
+
+    @property
+    def n_beta_coeff(self):
+        return self.cfg.n_beta_coeff
+
+    # ------------------------------------------------------------------
+    # data ingestion
+    # ------------------------------------------------------------------
+
+    def set_data(self, x_eval, fval, std_fval=None, grad=None, std_grad=None,
+                 bvec_use_grad=None):
+        cfg = self.cfg
+        x_eval = np.asarray(x_eval, float)
+        fval = np.atleast_1d(np.asarray(fval, float)).ravel()
+        n_eval = fval.size
+        assert x_eval.ndim == 2, "x_eval must be a 2D array"
+        assert x_eval.shape[0] == n_eval, "x_eval/fval size mismatch"
+        if grad is not None:
+            grad = np.asarray(grad, float)
+            assert cfg.use_grad, "grad provided but use_grad is False"
+        else:
+            assert not cfg.use_grad, "use_grad is True but no grad provided"
+
+        if std_fval is not None and np.any(np.isnan(std_fval)):
+            std_fval = None
+        if std_grad is not None and np.any(np.isnan(std_grad)):
+            std_grad = None
+
+        self.n_eval = n_eval
+        self._x_eval_in = x_eval
+        self._fval_in = fval
+        self._std_fval_in = None if std_fval is None else np.asarray(std_fval, float).ravel()
+        self._grad_in = grad
+        self._std_grad_in = None if std_grad is None else np.asarray(std_grad, float)
+        self.bvec_use_grad = bvec_use_grad
+
+        n_pad = 0
+        if cfg.pad_n_eval_multiple > 1:
+            n_pad = (-n_eval) % cfg.pad_n_eval_multiple
+        self.spec = make_data_spec(cfg.dim, cfg.use_grad, n_eval,
+                                   std_fval=self._std_fval_in,
+                                   std_grad=self._std_grad_in,
+                                   bvec_use_grad=bvec_use_grad,
+                                   n_pad_eval=n_pad)
+        self.n_grad = self.spec.n_grad
+
+        self._eta_Kbase, self._eta_Kgrad = conditioning.calc_nugget(cfg, n_eval)
+        self._etaK = self._eta_Kgrad if cfg.use_grad else self._eta_Kbase
+        self._vmin_init = (float(rtensor.calc_dist_min(torch.as_tensor(x_eval)))
+                           if n_eval > 1 else np.nan)
+        self.hp_info_optz_lkd = self.set_hp_optz_info()
+        self._refresh_core_data()
+        self._eval_state = None
+
+    def _refresh_core_data(self):
+        """Build the device-resident GpData (padding points appended)."""
+        x, f = self._x_eval_in, self._fval_in
+        std_f, g, std_g = self._std_fval_in, self._grad_in, self._std_grad_in
+        n_pad = self.spec.n_pad_eval
+        if n_pad:
+            x = np.concatenate([x, np.tile(x[:1], (n_pad, 1))])
+            f = np.concatenate([f, np.zeros(n_pad)])
+            if std_f is not None:
+                std_f = np.concatenate([std_f, np.zeros(n_pad)])
+        self.data = GpData(
+            x=self._tensor(x), fval=self._tensor(f),
+            std_fval=None if std_f is None else self._tensor(std_f),
+            grad=None if g is None else self._tensor(g),
+            std_grad=None if std_g is None else self._tensor(std_g))
+
+    # ------------------------------------------------------------------
+    # hyperparameter containers
+    # ------------------------------------------------------------------
+
+    def make_hp_class(self, beta=None, theta=None, kernel=None, varK=None,
+                      var_fval=None, var_fgrad=None) -> Hypers:
+        def arr(v):
+            return None if v is None else self._tensor(v)
+        return Hypers(beta=arr(beta), theta=arr(theta), kernel=arr(kernel),
+                      varK=arr(varK), var_fval=arr(var_fval),
+                      var_fgrad=arr(var_fgrad))
+
+    def set_custom_hp(self, beta=None, theta=None, kernel=None, varK=None,
+                      var_fval=None, var_fgrad=None):
+        if varK is not None:
+            assert varK > 0, f"varK must be positive but it is {varK}"
+        self.hp_vals = self.make_hp_class(beta, theta, kernel, varK,
+                                          var_fval, var_fgrad)
+
+    def hp_vec2dataclass(self, hp_optz_info: HpInfo, hp_vec) -> Hypers:
+        return hp_vec_to_hypers(hp_optz_info, self._tensor(hp_vec))
+
+    def set_hp_from_idx(self, i_optz: int):
+        h = self.history
+        assert h is not None, "init_optz_surr must be called first"
+        var_fval = h.hp_var_fval[i_optz]
+        var_fgrad = h.hp_var_fgrad[i_optz]
+        self.hp_vals = self.make_hp_class(
+            h.hp_beta[i_optz], h.hp_theta[i_optz],
+            None if np.isnan(h.hp_kernel[i_optz]) else h.hp_kernel[i_optz],
+            h.hp_varK[i_optz],
+            None if np.isnan(var_fval) else var_fval,
+            None if np.isnan(var_fgrad) else var_fgrad)
+
+    def set_hp_optz_info(self) -> HpInfo:
+        """Index layout of the numerically optimized hyperparameters."""
+        cfg, spec = self.cfg, self.spec
+        return HpInfo(dim=cfg.dim,
+                      has_theta=True,
+                      has_kernel=cfg.b_optz_hp_kernel and cfg.kernel_has_hp,
+                      has_varK=spec.b_has_noisy_data,
+                      has_var_fval=spec.b_optz_var_fval,
+                      has_var_fgrad=spec.b_optz_var_fgrad,
+                      log_theta=cfg.optz_log_hp_theta,
+                      log_kernel=cfg.optz_log_hp_kernel,
+                      log_var=cfg.optz_log_hp_var)
+
+    setup_hp_idx4optz = set_hp_optz_info
+
+    def get_init_hp_vals(self) -> Hypers:
+        """Initial hyperparameters used while n_eval <= hp_const_n_eval."""
+        cfg, spec = self.cfg, self.spec
+        theta = cfg.hp_theta_init * np.ones(cfg.dim)
+        beta = np.zeros(cfg.n_beta_coeff)
+        beta[0] = float(np.mean(self._fval_in))
+        var_fval = None if spec.known_eps_fval else cfg.hp_var_fval_init
+        var_fgrad = (None if (not cfg.use_grad or spec.known_eps_fgrad)
+                     else cfg.hp_var_fgrad_init)
+        return self.make_hp_class(beta, theta, cfg.hp_kernel_default,
+                                  cfg.hp_varK_init, var_fval, var_fgrad)
+
+    # ------------------------------------------------------------------
+    # likelihood entry point
+    # ------------------------------------------------------------------
+
+    def calc_lkd_all(self, hp_vals: Hypers, calc_lkd=True, calc_cond=False,
+                     calc_grad=False):
+        """Returns (LkdInfo, b_chofac_good)."""
+        with torch.no_grad():
+            lkd = likelihood.calc_lkd(self.cfg, self.spec, self.data, hp_vals,
+                                      float(self._etaK), calc_cond=calc_cond)
+        return lkd, bool(lkd.ok)
+
+    # ------------------------------------------------------------------
+    # training (set_hpara / optz_hp)
+    # ------------------------------------------------------------------
+
+    def init_optz_surr(self, n_optz_max: int):
+        self.history = FitHistory(n_optz_max, self.cfg.dim,
+                                  self.cfg.n_beta_coeff)
+
+    def finish_optz_surr(self, n_optz_final: int):
+        assert self.history is not None
+        self.history.finish(n_optz_final)
+
+    def export_data_surr(self, save2file=True, file2save=None):
+        assert self.history is not None
+        path = (file2save or self.path_surr_npz) if save2file else None
+        return self.history.export(path or "", self.surr_name) \
+            if path else self.history.to_dict(self.surr_name)
+
+    def load_data_surr(self, all_data=None, path=None):
+        assert self.history is not None
+        self.history.load(all_data if all_data is not None
+                          else (path or self.path_surr_npz), self.surr_name)
+
+    def store_new_para_surr(self, i_optz, hp_vals, surr_optz_info=None,
+                            cond_val=np.nan, time_hp_optz=np.nan,
+                            time_chofac=np.nan, time_pick_hp0=np.nan,
+                            ln_lkd=np.nan):
+        self.hp_vals = hp_vals
+        if self.history is None:
+            return
+        self.history.store(
+            i_optz, Hypers(**convert.hypers_to_numpy(hp_vals)), surr_optz_info,
+            cond_val, self.cfg.cond_max, self._eta_Kbase, self._eta_Kgrad,
+            self.cfg.use_grad, self._vmin_init, np.nan, None, self._fval_in,
+            ln_lkd, time_hp_optz, time_chofac, time_pick_hp0)
+
+    def optz_hp(self, i_optz: int):
+        """One hyperparameter-training round."""
+        cfg = self.cfg
+        if self.n_eval <= cfg.hp_const_n_eval:
+            hp_vals = self.get_init_hp_vals()
+            lkd, _ = self.calc_lkd_all(hp_vals, calc_cond=True)
+            self.store_new_para_surr(i_optz, hp_vals, None, float(lkd.cond))
+            return
+
+        t0 = time.time()
+        fit = self._run_fit(i_optz)
+        t_optz = time.time() - t0
+        hp_vals = hp_vec_to_hypers(self.hp_info_optz_lkd,
+                                   self._tensor(fit.hp_vec))
+        hp_vals = self._closed_form(hp_vals)
+        self.store_new_para_surr(i_optz, hp_vals, fit.info, float(fit.cond),
+                                 t_optz, self._time_chofac_last,
+                                 ln_lkd=-float(fit.neg_lkd))
+
+    def _run_fit(self, i_optz, x0_override=None):
+        return multistart.fit_map(
+            self.cfg, self.spec, self.hp_info_optz_lkd, self.data,
+            float(self._etaK), history=self.history, i_optz=i_optz,
+            seed=self._fit_seed, x0_override=x0_override,
+            hp_prev=self._prev_hp_vec())
+
+    def _prev_hp_vec(self):
+        """Previous round's converged hp as an optimization-space vector (or
+        None), guarded against layout changes and non-finite leftovers."""
+        if self.hp_vals is None:
+            return None
+        try:
+            v = hypers_to_hp_vec(self.hp_info_optz_lkd, self.hp_vals)
+        except (TypeError, ValueError, RuntimeError):
+            return None
+        v = v.detach().cpu().numpy().astype(float)
+        if v.size != self.hp_info_optz_lkd.n_hp or not np.all(np.isfinite(v)):
+            return None
+        return v
+
+    def _closed_form(self, hp_vals: Hypers) -> Hypers:
+        t0 = time.time()
+        with torch.no_grad():
+            lkd = likelihood.calc_lkd(self.cfg, self.spec, self.data, hp_vals,
+                                      float(self._etaK))
+        _sync(self.device)
+        # one assembly + factorization at the final hp
+        self._time_chofac_last = time.time() - t0
+        self._time_chofac += self._time_chofac_last
+        varK = hp_vals.varK if self.spec.b_has_noisy_data else lkd.varK
+        return hp_vals._replace(beta=lkd.beta, varK=varK)
+
+    def set_hpara(self, method2set_hp: str, i_optz: int, hp_vals=None,
+                  calc_cond: bool = False):
+        assert isinstance(method2set_hp, str)
+        if method2set_hp == "stored":
+            assert i_optz >= 0
+            self.set_hp_from_idx(i_optz)
+        elif method2set_hp == "optz":
+            self.optz_hp(i_optz)
+        elif method2set_hp == "current":
+            assert self.hp_vals is not None
+        elif method2set_hp == "set":
+            assert hp_vals is not None
+            self.hp_vals = hp_vals
+        else:
+            raise ValueError(f"Unknown method2set_hp = {method2set_hp}")
+        if self.hp_vals.beta is None or self.hp_vals.varK is None:
+            self.hp_vals = self._closed_form(self.hp_vals)
+        self.setup_eval_model(calc_cond=calc_cond)
+
+    # ------------------------------------------------------------------
+    # prediction
+    # ------------------------------------------------------------------
+
+    def setup_eval_model(self, calc_cond: bool = False):
+        assert self.hp_vals is not None, "hyperparameters not set"
+        self._hp_vals_model_setup = self.hp_vals
+        with torch.no_grad():
+            self._eval_state = predict.setup_eval(
+                self.cfg, self.spec, self.data, self.hp_vals,
+                float(self._etaK), calc_cond=calc_cond)
+        self.condK = float(self._eval_state.cond) if calc_cond else None
+
+    def _check_eval_ready(self):
+        assert self._eval_state is not None, \
+            "setup_eval_model() must be called before eval_model()"
+        assert self.hp_vals is self._hp_vals_model_setup, \
+            "Cannot change hp_vals between setup_eval_model() and eval_model()"
+
+    @staticmethod
+    def _host(vals, squeeze_nx):
+        out = [None if v is None else v.cpu().numpy() for v in vals]
+        if squeeze_nx:
+            out = [None if v is None else v[0] for v in out]
+        return tuple(out)
+
+    def eval_model(self, x2model_in, calc_grad=False, calc_hess=False,
+                   squeeze_nx=False):
+        self._check_eval_ready()
+        if calc_hess:
+            assert calc_grad, "calc_hess requires calc_grad"
+        xq = np.atleast_2d(np.asarray(x2model_in, float))
+        if squeeze_nx:
+            assert xq.shape[0] == 1
+        with torch.no_grad():
+            out = predict.eval_model(self.cfg, self.spec, self.data,
+                                     self._eval_state, self._tensor(xq),
+                                     calc_grad=calc_grad, calc_hess=calc_hess)
+        return self._host(out, squeeze_nx)
+
+    def eval_model_var(self, x2model_in, calc_grad=False, calc_hess=False,
+                       squeeze_nx=False):
+        """Variance (not std) and its derivatives."""
+        self._check_eval_ready()
+        xq = np.atleast_2d(np.asarray(x2model_in, float))
+        if squeeze_nx:
+            assert xq.shape[0] == 1
+        with torch.no_grad():
+            out = predict.eval_model_var(self.cfg, self.spec, self.data,
+                                         self._eval_state, self._tensor(xq),
+                                         calc_grad=calc_grad,
+                                         calc_hess=calc_hess)
+        return self._host(out, squeeze_nx)
+
+    # ------------------------------------------------------------------
+    # features of later slices
+    # ------------------------------------------------------------------
+
+    def sample_posterior(self, *args, **kw):
+        raise NotImplementedError(
+            "sample_posterior (NUTS) comes with ROADMAP.md Queue 1 item 10")
+
+    def get_txt_info_surr(self, *args, **kw):
+        raise NotImplementedError(
+            "the telemetry tables (utils/) come with ROADMAP.md Queue 1 item 11")
+
+    def plt_debug_lkd(self, *args, **kw):
+        raise NotImplementedError(
+            "the MLL contour plot (utils/) comes with ROADMAP.md Queue 1 item 11")
+
+    def calc_model_mean_w_data_init(self, *args, **kw):
+        raise NotImplementedError(
+            "calc_model_mean_w_data_* comes with the BO loop, ROADMAP.md "
+            "Queue 1 item 11")
+
+    calc_model_mean_w_data_scl = calc_model_mean_w_data_init

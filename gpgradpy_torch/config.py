@@ -1,0 +1,160 @@
+"""Typed configuration of the gradient-enhanced GP, PyTorch port.
+
+A copy of ``gpgradpy_tpu.config.GpConfig`` (the JAX package's option
+surface) without ``use_pallas``: the covariance takes the hand-written CUDA
+kernels whenever its tensors lie on a CUDA device, with no switch.  The
+switches of features not ported yet (``wellcond_mtd``, ``optz_mtd``,
+``solver``, ``polish_cond_target``, ``n_refine_predict``) are accepted by
+the dataclass and refused by ``check_ported`` with a pointer to the
+ROADMAP.md item that brings them; their tuning options come with that item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+KERNEL_TYPES = ("SqExp", "Ma5f2", "RatQu")
+
+WELLCOND_MTD_AVAIL = (
+    "base",              # only use a positive nugget
+    "precon",            # diagonal preconditioner on the correlation matrix
+    "rescale_origin",    # rescaling method, vmin depends on n_eval, const eta
+    "rescale_eta_vary",  # rescaling with set vmin and variable eta
+    "dflt_vmin",         # set min point distance to cond_dist_min_dflt
+    "dflt_vmax",         # set max point distance to cond_dist_max_dflt
+)
+
+
+@dataclass(frozen=True)
+class GpConfig:
+    """Static configuration (frozen, hashable)."""
+
+    # --- structural choices ---
+    dim: int = 1
+    use_grad: bool = True
+    kernel_type: str = "SqExp"
+    wellcond_mtd: str = "precon"
+    mean_fun_type: str = "poly_ord_0"   # 'poly_ord_0' or 'poly_ord_1'
+
+    # --- hyperparameter optimization ---
+    optz_mtd: str = "lbfgs"
+    optz_n_x0: int = 5
+    optz_iter_max: int = 250
+    optz_tol_obj: float = 1e-12
+    optz_tol_x: float = 1e-12
+
+    optz_log_hp_theta: bool = True
+    optz_log_hp_var: bool = True
+    optz_log_hp_kernel: bool = True
+
+    # --- marginal log-likelihood ---
+    lkd_optz_start_mtd: str = "hp_best"   # 'hp_best' or 'lhs'
+    lkd_hp_best_n_eval: int = 40
+
+    lkd_varK_pnlt_use: bool = False
+    lkd_varK_pnlt_lb_var: float = 0.1
+    lkd_varK_pnlt_c1: float = 1.0
+    lkd_varK_pnlt_c2: float = 10.0
+
+    # --- hyperparameter init / ranges ---
+    hp_const_n_eval: int = 1
+    hp_lhs_bound_factor: float = 1e3
+    hp_box_bound_factor: float = 1e5
+    hp_median_n_idx: int = 5
+
+    hp_theta_init: float = 1e-2
+    hp_varK_init: float = 1.0
+    hp_var_fval_init: float = 0.0
+    hp_var_fgrad_init: float = 0.0
+
+    hp_theta_range: Tuple[float, float] = (1e-18, 1e24)
+    hp_varK_range: Tuple[float, float] = (1e-24, 1e14)
+    hp_var_fval_range: Tuple[float, float] = (1e-8, 1e8)
+    hp_var_fgrad_range: Tuple[float, float] = (1e-8, 1e8)
+
+    # --- conditioning policy ---
+    cond_eta_set_mtd: str = "Kbase_eta"   # 'Kbase_eta' | 'Kbase_eta_w_dim' | 'dflt_eta'
+    cond_eta_is_const: bool = True
+    cond_eta_dflt: float = 1e-8
+
+    cond_max_target: float = 1e10
+    cond_max: float = 1e10
+    cond_max_abs: float = 1e16
+    cond_norm: int = 2                    # 2 (spectral, eigh) or 'fro'
+
+    # --- misc ---
+    b_optz_hp_kernel: bool = True
+    varK_min: float = 1e-32
+    dtype: str = "float64"                # 'float64' or 'float32'
+    n_refine_predict: int = 0             # mixed-precision predict (not ported)
+    polish_cond_target: float = 0.0       # f64 polish re-fit (not ported)
+    pad_n_eval_multiple: int = 0          # shape bucketing: pad n_eval up to a
+                                          # multiple (padded points are masked)
+
+    # large-n solvers 'iterative' | 'dense_dist' are not ported
+    solver: str = "dense"                 # 'dense' | 'iterative' | 'dense_dist'
+
+    def __post_init__(self):
+        assert self.kernel_type in KERNEL_TYPES, f"unknown kernel {self.kernel_type}"
+        assert self.wellcond_mtd in WELLCOND_MTD_AVAIL, (
+            f"Requested method not available, wellcond_mtd : {self.wellcond_mtd}"
+        )
+        # gradient-free models always use 'base' (as the JAX package does)
+        if not self.use_grad and self.wellcond_mtd != "base":
+            object.__setattr__(self, "wellcond_mtd", "base")
+        assert self.solver in ("dense", "iterative", "dense_dist"), \
+            f"unknown solver {self.solver}"
+        assert self.dtype in ("float64", "float32"), f"unknown dtype {self.dtype}"
+        if self.wellcond_mtd == "rescale_eta_vary":
+            object.__setattr__(self, "cond_eta_is_const", False)
+
+    def check_ported(self):
+        """Raise NotImplementedError for options this port does not run yet."""
+        if self.wellcond_mtd not in ("precon", "base"):
+            raise NotImplementedError(
+                f"wellcond_mtd={self.wellcond_mtd!r}: the rescaling methods "
+                "and their constrained fit come with ROADMAP.md Queue 1 item 8")
+        if self.optz_mtd != "lbfgs":
+            raise NotImplementedError(
+                f"optz_mtd={self.optz_mtd!r}: the scipy/SLSQP constrained "
+                "fit comes with ROADMAP.md Queue 1 item 8")
+        if self.solver == "iterative":
+            raise NotImplementedError(
+                "solver='iterative' comes with ROADMAP.md Queue 1 item 9")
+        if self.solver == "dense_dist":
+            raise NotImplementedError(
+                "solver='dense_dist' comes with ROADMAP.md Queue 1 item 12")
+        if self.polish_cond_target or self.n_refine_predict:
+            raise NotImplementedError(
+                "polish_cond_target / n_refine_predict (f32 fit + f64 polish) "
+                "wait for an H100 measurement, ROADMAP.md Queue 1 item 13")
+
+    # -- derived flags (same as the JAX package) --
+    @property
+    def b_use_cond_cstr(self) -> bool:
+        return self.wellcond_mtd != "precon"
+
+    @property
+    def kernel_has_hp(self) -> bool:
+        return self.kernel_type == "RatQu"
+
+    @property
+    def hp_kernel_default(self) -> Optional[float]:
+        return 2.0 if self.kernel_type == "RatQu" else None
+
+    @property
+    def hp_kernel_range(self) -> Tuple[float, float]:
+        return (1e-3, 10.0) if self.kernel_type == "RatQu" else (float("nan"), float("nan"))
+
+    @property
+    def n_beta_coeff(self) -> int:
+        if self.mean_fun_type == "poly_ord_0":
+            return 1
+        if self.mean_fun_type == "poly_ord_1":
+            return 1 + self.dim
+        raise ValueError(f"mean_fun_type = {self.mean_fun_type} not available")
+
+    def replace(self, **kw) -> "GpConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,141 @@
+"""The port's GaussianProcess facade end to end on the CPU, against the JAX
+package's facade (float64), plus the port's contracts: the device rule,
+the options not ported yet, float32, padding, the 'base' method, history,
+and a package that imports nothing of JAX."""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from gpgradpy_tpu import GaussianProcess as JaxGP
+from gpgradpy_torch import GaussianProcess
+from gpgradpy_torch.bo.problems import rosenbrock
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _data(n=12, d=2, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-2, 2, (n, d))
+    f, g = rosenbrock(x)
+    xq = rng.uniform(-1.5, 1.5, (5, d))
+    return x, f, g, xq
+
+
+def _fit(cls, d, x, f, g, ktype="SqExp", wellcond="precon", **kw):
+    gp = cls(d, True, ktype, wellcond, **kw)
+    gp.init_optz_surr(2)
+    n = x.shape[0]
+    gp.set_data(x, f, np.zeros(n), g, np.zeros((n, d)))
+    gp.set_hpara("optz", 0)
+    return gp
+
+
+@pytest.mark.parametrize("ktype", ["SqExp", "RatQu"])
+def test_facade_matches_jax(ktype):
+    """d=2, n_eval=12 Rosenbrock: the same -ln L (rtol 1e-6), then the
+    hyperparameters and predictions.  The likelihood is flat near its
+    optimum: the two optimizers stop on tol_f 1e-12 at -ln L 2e-10 apart but
+    theta 2e-5 apart, which moves the std gradients by ~2e-4 of their
+    largest entry.  So hyperparameters and predictions get rtol 1e-3 with a
+    floor of 1e-3 of each output's largest entry; parity at equal
+    hyperparameters is held to 1e-8 in test_torch_fit_predict."""
+    x, f, g, xq = _data()
+    gp_t = _fit(GaussianProcess, 2, x, f, g, ktype, device="cpu")
+    gp_j = _fit(JaxGP, 2, x, f, g, ktype)
+    np.testing.assert_allclose(gp_t.history.ln_lkd[0], gp_j.history.ln_lkd[0],
+                               rtol=1e-6)
+    np.testing.assert_allclose(gp_t.history.hp_theta[0],
+                               gp_j.history.hp_theta[0], rtol=1e-3)
+    for got, want in zip(gp_t.eval_model(xq, calc_grad=True, calc_hess=True),
+                         gp_j.eval_model(xq, calc_grad=True, calc_hess=True)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-3,
+                                   atol=1e-3 * np.max(np.abs(want)))
+    for got, want in zip(gp_t.eval_model_var(xq, calc_grad=True),
+                         gp_j.eval_model_var(xq, calc_grad=True)):
+        if want is not None:
+            np.testing.assert_allclose(got, np.asarray(want), rtol=1e-3,
+                                       atol=1e-3 * np.max(np.abs(want)))
+
+
+def test_facade_needs_a_card_or_an_explicit_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GaussianProcess(2, True)
+
+
+@pytest.mark.parametrize("option", [
+    dict(wellcond_mtd="rescale_origin"), dict(wellcond_mtd="dflt_vmax"),
+    dict(optz_mtd="slsqp"), dict(solver="iterative"),
+    dict(solver="dense_dist"), dict(polish_cond_target=1e10),
+    dict(n_refine_predict=2)])
+def test_options_of_later_slices_raise(option):
+    kw = dict(option)
+    wellcond = kw.pop("wellcond_mtd", "precon")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        GaussianProcess(2, True, "SqExp", wellcond, device="cpu", **kw)
+    gp = GaussianProcess(2, True, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        gp.sample_posterior()
+
+
+def test_base_method_float32_and_padding():
+    """'base' fits with the L-BFGS optimizer; float32 runs end to end; padding
+    the dataset leaves the fit and the predictions unchanged."""
+    x, f, g, xq = _data(n=10)
+    gp_b = _fit(GaussianProcess, 2, x, f, g, wellcond="base", device="cpu")
+    assert np.isfinite(gp_b.history.ln_lkd[0])
+    np.testing.assert_allclose(gp_b.eval_model(x)[0], f,
+                               atol=1e-3 * np.max(np.abs(f)))
+
+    gp_32 = _fit(GaussianProcess, 2, x, f, g, dtype="float32",
+                 cond_max_target=1e6, device="cpu")
+    assert gp_32.data.x.dtype == torch.float32
+    mu32 = gp_32.eval_model(xq)[0]
+    assert mu32.dtype == np.float32 and np.all(np.isfinite(mu32))
+
+    gp_0 = _fit(GaussianProcess, 2, x, f, g, device="cpu")
+    gp_p = _fit(GaussianProcess, 2, x, f, g, pad_n_eval_multiple=8,
+                device="cpu")
+    assert gp_p.spec.n_pad_eval == 6
+    np.testing.assert_allclose(gp_p.history.ln_lkd[0], gp_0.history.ln_lkd[0],
+                               rtol=1e-8)
+    # the padded fit stops at an optimum ~1e-8 apart in -ln L
+    for a, b in zip(gp_p.eval_model(xq, calc_grad=True)[:4],
+                    gp_0.eval_model(xq, calc_grad=True)[:4]):
+        np.testing.assert_allclose(a, b, rtol=1e-5,
+                                   atol=1e-6 * np.max(np.abs(b)))
+
+
+def test_history_and_stored_hyperparameters():
+    x, f, g, xq = _data(n=8)
+    gp = _fit(GaussianProcess, 2, x, f, g, device="cpu")
+    mu = gp.eval_model(xq)[0]
+    h = gp.history
+    assert np.isfinite(h.Kcov_cond[0]) and h.hp_optz_iter_max[0] >= 1
+    gp.set_hpara("stored", 0)
+    np.testing.assert_allclose(gp.eval_model(xq)[0], mu, rtol=1e-12)
+    data = gp.export_data_surr(save2file=False)
+    assert "obj_hp_theta_all" in data
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_port_imports_nothing_of_jax():
+    files = sorted((ROOT / "gpgradpy_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = [(str(p.relative_to(ROOT)), m) for p in files for m in _imports(p)
+           if m.split(".")[0] in ("jax", "jaxlib", "gpgradpy_tpu")]
+    assert bad == []
