@@ -5,28 +5,36 @@
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. card: name and power limit (nvidia-smi), TF32 off;
-  2. build: the CUDA kernels K1/K2 from gpgradpy_torch/csrc with nvcc;
+  2. build: the CUDA kernels K1/K2 from gpgradpy_torch/csrc with nvcc, and
+     each kernel's registers, shared memory and spills (-Xptxas -v);
   3. kernel checks: K1 and K2 against their plain PyTorch versions on the
-     card, 3 families x f32/f64 x square/rectangular/ragged x batched;
+     card, 3 families x f32/f64 x square/rectangular/ragged x batched, and
+     the edges of the kernels' tiling and 16-byte accesses: d=1, d=33,
+     n1=201 against n2=37 (rows that break 16-byte alignment), B=2, each
+     also in f32 and all three families; then K2 run twice on
+     the same inputs at the main path's shape (B=1, B=41) must agree
+     bitwise;
   4. main path, through the GaussianProcess facade in f64: a d=10,
      n_eval=200 Rosenbrock fit (twice; the second is timed warm) and
      prediction with gradients at 128 held-out points, the same fit with
      RatQu (alpha fitted), then the bench.py problem (d=4, n_eval=64)
-     against its RMSE gate, and small fits (3 families, 'base', float32)
-     compared with the port's CPU path.  Each path runs with the launch
-     counts set to 0 just before it, prints its own K1/K2 counts and fails
-     unless both launched;
-  5. times at the main path's shape with CUDA events: each kernel beside
-     its bound and its plain version, KernGradFn's RatQu backward with and
-     without alpha, and one Cholesky for context; the warm d=10 fit
-     repeated; one warm d=10 fit under torch.profiler, its device time by
-     layer.
+     against its RMSE gate, and small fits (3 families, float32) compared
+     with the port's CPU path.  Each path runs with the launch counts set
+     to 0 just before it, prints its own K1/K2 counts and fails unless both
+     launched;
+  5. times at the main path's shape with CUDA events: each kernel at B=1
+     and B=41 beside its bound, its plain version and the first port's
+     time; for context, one PyTorch write (fill_) and read (sum) of as many
+     bytes, KernGradFn's RatQu backward with and without alpha, and one
+     Cholesky; the warm d=10 fit repeated; one warm d=10 fit under
+     torch.profiler, its device time by layer.
 A "[summary]" JSON line gathers the results.  The line before the last is
 a JSON object {"kernels": [...]} whose launch counts are those of the warm
 d=10 fit + predict; the last line is {"ok": true, "device": {...}}.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -48,6 +56,11 @@ TOL = {  # max |kernel - plain| / max |plain|
     # eps * sqrt(terms) growth against the cancelling sum
     ("K2", "float64"): 1e-10, ("K2", "float32"): 1e-3,
 }
+# the first port's kernels (one block per 32x32 point tile and batch row):
+# f64 SqExp n=200 d=10, ms at B=1 and B=41 (PERF.md section 6, first
+# port's own record; NVIDIA H100 80GB HBM3, 700 W)
+FIRST_PORT_MS = {("K1", 1): 0.0529, ("K1", 41): 0.6154,
+                 ("K2", 1): 0.2399, ("K2", 41): 0.8395}
 
 
 def log(*a):
@@ -76,8 +89,13 @@ def phase_build(ca):
     log(f"[build] {path.name} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {ca.build_seconds:.2f} s)")
     for line in ca.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log("[build]   " + line.strip())
+        m = re.search(r"Compiling entry function '\w*?(kern_[a-z_]+)I([df])"
+                      r"(?:Li(\d)E)?", line)
+        if m:
+            log(f"[build]   {m[1]}<{'double' if m[2] == 'd' else 'float'}"
+                f"{'' if m[3] is None else ', family ' + m[3]}>")
+        elif "registers" in line or "spill" in line or "error" in line:
+            log("[build]     " + line.strip())
 
 
 def _inputs(torch, rng, n1, n2, d, B, dtype, kernel_type, same):
@@ -109,6 +127,12 @@ def phase_kernels(torch, ca):
         (200, 200, 10, None, True),  # main path: L-BFGS / setup_eval
         (200, 128, 10, None, False), # main path width, rectangular
         (200, 200, 10, 41, True),    # main path: hp_best scan batch
+        # edges of the tiling over derivative rows and of the 16-byte
+        # loads and stores
+        (64, 64, 1, None, True),     # d=1: two derivative rows
+        (40, 33, 33, None, False),   # d=33: 34 column blocks per row
+        (201, 37, 5, 2, False),      # ragged, rectangular, rows not 16-byte
+                                     # aligned (element-wise access), B=2
     ]
     worst = {"K1": 0.0, "K2": 0.0}
     ok = True
@@ -139,6 +163,19 @@ def phase_kernels(torch, ca):
     torch.cuda.empty_cache()
     if not ok:
         raise SystemExit("kernel check failed")
+    # K2's partials are added in a fixed order, without atomics: the same
+    # inputs give the same bits, so the MLL gradient repeats exactly
+    for B in (None, 41):
+        x1, _, th, _, gb = _inputs(torch, rng, 200, 200, 10, B, torch.float64,
+                                   "SqExp", True)
+        runs = [ca.kern_grad_vjp_theta("SqExp", x1, x1, th, None, gb)
+                for _ in range(2)]
+        same = torch.equal(runs[0], runs[1])
+        log(f"[check] K2 SqExp float64 n=200 d=10 B={B} run twice: "
+            f"{'bitwise equal' if same else 'DIFFER'}")
+        if not same:
+            raise SystemExit("K2 is not bitwise reproducible")
+        del x1, th, gb, runs
     return worst
 
 
@@ -253,14 +290,14 @@ def phase_main(torch, ca, GaussianProcess, rosenbrock):
     out.update(rmse_bench=rmse, t_bench=t_bench, bench_launches=c_bench)
 
     # the card's path against the port's CPU path on small inputs: each
-    # kernel family (RatQu also takes its alpha gradient on the card), the
-    # 'base' method and float32.  The fits may stop a few L-BFGS steps apart
+    # kernel family (RatQu also takes its alpha gradient on the card) and
+    # float32.  The fits may stop a few L-BFGS steps apart
     # on a flat optimum, so -ln L is compared to rtol 1e-6 (f32: 1e-3) and
     # the predicted mean to 1e-4 of its scale (f32: 1e-2).
     d, n = 3, 20
     x, f, g, xt, _, _ = _rosen_problem(rosenbrock, n, d, seed=1)
     cases = [("SqExp", "precon", "float64"), ("Ma5f2", "precon", "float64"),
-             ("RatQu", "precon", "float64"), ("SqExp", "base", "float64"),
+             ("RatQu", "precon", "float64"), ("Ma5f2", "precon", "float32"),
              ("SqExp", "precon", "float32")]
     bad = []
     for kt, wc, dt in cases:
@@ -339,9 +376,24 @@ def phase_times(torch, ca, KernGradFn):
             log(f"[time] {name} SqExp f64 n=200 d=10 B={nb}: {ms:.4f} ms "
                 f"(bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
                 f"{nbytes / ms / 1e6:.1f} GB/s = "
-                f"{100 * row['bound_ms'] / ms:.1f}% of bound) | plain "
+                f"{100 * row['bound_ms'] / ms:.1f}% of bound; first port "
+                f"{FIRST_PORT_MS[(name, nb)]:.4f} ms = "
+                f"{100 * row['bound_ms'] / FIRST_PORT_MS[(name, nb)]:.1f}%) | plain "
                 f"{plain_ms:.4f} ms | library call: none computes this function")
         del x1, x2, th, gb
+
+    # what one PyTorch call takes to write (fill_) and to read (sum) as many
+    # bytes as the kernels move: context for the bound, not a library
+    # version of either kernel
+    for B in (1, 41):
+        buf = torch.empty((B, (d + 1) * n, (d + 1) * n), dtype=torch.float64,
+                          device="cuda")
+        ctx[f"fill_B{B}_ms"] = _time_ms(torch, lambda: buf.fill_(1.0), 10, flush)
+        ctx[f"sum_B{B}_ms"] = _time_ms(torch, lambda: buf.sum(), 10, flush)
+        log(f"[time] context: the same {buf.numel() * 8 / 1e6:.1f} MB in one "
+            f"PyTorch call, B={B}: fill_ (write) {ctx[f'fill_B{B}_ms']:.4f} ms,"
+            f" sum (read) {ctx[f'sum_B{B}_ms']:.4f} ms")
+        del buf
 
     # KernGradFn forward + backward for RatQu at the same shape: the theta
     # cotangent alone (K1 + K2) against theta and alpha (K1 + K2 + autograd
@@ -478,6 +530,8 @@ def main():
                                                          "bound_ms")}
                       for (k, b), r in rows.items()},
         "cholesky_ms": ctx["chol_ms"],
+        "same_bytes_one_torch_call_ms": {k: v for k, v in ctx.items()
+                                         if k.startswith(("fill_", "sum_"))},
     }
     if prof is not None:
         dev_ms, wall_ms = prof

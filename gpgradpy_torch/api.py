@@ -1,5 +1,6 @@
 """Stateful ``GaussianProcess`` facade over the functional core
-(counterpart of ``gpgradpy_tpu/api.py``, dense solver, 'precon' and 'base').
+(counterpart of ``gpgradpy_tpu/api.py``, dense solver, 'precon'; 'base' and
+``wellcond_mtd=None`` raise until its constrained fit is ported).
 
 Same constructor, option surface (constructor kwargs and mutable
 attributes) and methods as the JAX package's facade.  The model lives on

@@ -112,10 +112,13 @@ class GpConfig:
 
     def check_ported(self):
         """Raise NotImplementedError for options this port does not run yet."""
-        if self.wellcond_mtd not in ("precon", "base"):
+        if self.wellcond_mtd != "precon":
+            # the JAX package fits every other method, 'base' included, with
+            # SLSQP under the condition-number constraint (b_use_cond_cstr)
             raise NotImplementedError(
-                f"wellcond_mtd={self.wellcond_mtd!r}: the rescaling methods "
-                "and their constrained fit come with ROADMAP.md Queue 1 item 8")
+                f"wellcond_mtd={self.wellcond_mtd!r}: every method but "
+                "'precon' takes the constrained fit, which comes with "
+                "ROADMAP.md Queue 1 item 8")
         if self.optz_mtd != "lbfgs":
             raise NotImplementedError(
                 f"optz_mtd={self.optz_mtd!r}: the scipy/SLSQP constrained "

@@ -90,7 +90,7 @@ def _load():
         lib.kern_vjp_theta_launch.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp,
                                               vp, ci, ci, ci, ci, vp]
         lib.kern_vjp_theta_launch.restype = ci
-        lib.kern_vjp_theta_scratch.argtypes = [ci, ci, ci, ci]
+        lib.kern_vjp_theta_scratch.argtypes = [ci, ci, ci, ci, ci]
         lib.kern_vjp_theta_scratch.restype = ctypes.c_longlong
         lib.kern_max_dim.argtypes = [ci]
         lib.kern_max_dim.restype = ci
@@ -111,17 +111,20 @@ def _check(lib, err: int, what: str):
 # ---------------------------------------------------------------------------
 
 def _rows(theta: torch.Tensor, alpha, kernel_type: str):
-    """theta (..., d) -> (B, d); alpha (None, float or (...,)) -> (B,)."""
+    """theta (..., d) -> (B, d); alpha (None, float or (...,)) -> (B,) for
+    RatQu, None for the families without alpha."""
     d = theta.shape[-1]
     th = theta.reshape(-1, d)
-    if kernel_type == "RatQu":
-        if alpha is None:
-            raise ValueError("RatQu needs alpha")
-        a = torch.as_tensor(alpha, dtype=theta.dtype, device=theta.device)
-        a = a.expand(theta.shape[:-1]).reshape(-1).contiguous()
-    else:
-        a = torch.zeros(th.shape[0], dtype=theta.dtype, device=theta.device)
-    return th, a
+    if kernel_type != "RatQu":
+        return th, None
+    if alpha is None:
+        raise ValueError("RatQu needs alpha")
+    a = torch.as_tensor(alpha, dtype=theta.dtype, device=theta.device)
+    return th, a.expand(theta.shape[:-1]).reshape(-1).contiguous()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _check_cuda_args(kernel_type, x1, x2, theta, extra=()):
@@ -171,7 +174,7 @@ def kern_grad(kernel_type: str, x1: torch.Tensor, x2: torch.Tensor,
     out = torch.empty((B, A * n1, A * n2), dtype=th.dtype, device=th.device)
     err = lib.kern_grad_launch(
         _DTYPES[th.dtype], FAMILIES[kernel_type], x1c.data_ptr(),
-        x2c.data_ptr(), th.data_ptr(), a.data_ptr(), out.data_ptr(),
+        x2c.data_ptr(), th.data_ptr(), _ptr(a), out.data_ptr(),
         B, n1, n2, d, torch.cuda.current_stream(th.device).cuda_stream)
     _check(lib, err, "K1 kern_grad")
     kern_grad.launches += 1
@@ -196,6 +199,41 @@ def kern_grad_vjp_theta_plain(kernel_type: str, x1, x2, theta, alpha, gbar):
     return g
 
 
+def kern_grad_vjp_theta_regrouped(kernel_type: str, x1, x2, theta, alpha,
+                                  gbar):
+    """K2's regrouped contraction (the head note of csrc/kern_assembly.cu)
+    in plain PyTorch, so the kernel's algebra is checked where it cannot
+    run.  With u = theta o R and g_ab = Gbar[a, b] per point pair,
+
+        theta_bar_c = sum R_c^2 m_W + R_c sum_a s_a g_ac + e_c,
+
+    where derivative row 0 gives s_0 = -2 p1 and m_W += p1 g_00 - 2 p2 dot_0,
+    a row a > 0 gives s_a = -4 p2 u_a, m_W += 2 p2 u_a g_a0 - 4 p3 u_a dot_a
+    - 2 p2 theta_a g_aa and e_a = R_a (2 p1 g_a0 - 4 p2 dot_a) - 2 p1 g_aa,
+    and dot_a = sum_{b>=1} u_b g_ab."""
+    th, al = _rows(theta, alpha, kernel_type)
+    n1, d = x1.shape
+    n2 = x2.shape[0]
+    A = d + 1
+    R = rtensor.calc_rtensor(x1, x2)                           # (d, n1, n2)
+    W = kernels.weighted_sqdist(R, th)                         # (B, n1, n2)
+    _, p1, p2, p3 = kernels.PHI[kernel_type](W, al)
+    p1, p2, p3 = p1[:, None], p2[:, None], p3[:, None]
+    G = gbar.reshape(-1, A, n1, A, n2).transpose(2, 3)         # (B, a, b, n1, n2)
+    u = th[:, :, None, None] * R                               # (B, d, n1, n2)
+    dot = torch.einsum("bcij,bacij->baij", u, G[:, :, 1:])     # dot_a, every a
+    g0 = G[:, :, 0]                                            # g_a0
+    gaa = torch.diagonal(G[:, 1:, 1:], dim1=1, dim2=2).permute(0, 3, 1, 2)
+    mw = (p1[:, 0] * g0[:, 0] - 2.0 * p2[:, 0] * dot[:, 0]
+          + (2.0 * p2 * u * g0[:, 1:] - 4.0 * p3 * u * dot[:, 1:]
+             - 2.0 * p2 * th[:, :, None, None] * gaa).sum(1))
+    e = R * (2.0 * p1 * g0[:, 1:] - 4.0 * p2 * dot[:, 1:]) - 2.0 * p1 * gaa
+    s = torch.cat([-2.0 * p1, -4.0 * p2 * u], dim=1)           # (B, A, n1, n2)
+    col = torch.einsum("baij,bacij->bcij", s, G[:, :, 1:])
+    out = (R * R * mw[:, None] + R * col + e).sum((-2, -1))
+    return out.reshape(theta.shape)
+
+
 def kern_grad_vjp_theta(kernel_type: str, x1: torch.Tensor, x2: torch.Tensor,
                         theta: torch.Tensor, alpha, gbar: torch.Tensor
                         ) -> torch.Tensor:
@@ -217,12 +255,13 @@ def kern_grad_vjp_theta(kernel_type: str, x1: torch.Tensor, x2: torch.Tensor,
         raise ValueError(f"gbar shape {tuple(gbar.shape)} does not match "
                          f"the covariance of x1, x2, theta")
     gb = gbar.contiguous()
-    partial = torch.empty(lib.kern_vjp_theta_scratch(B, n1, n2, d),
-                          dtype=th.dtype, device=th.device)
+    partial = torch.empty(
+        lib.kern_vjp_theta_scratch(_DTYPES[th.dtype], B, n1, n2, d),
+        dtype=th.dtype, device=th.device)
     out = torch.empty((B, d), dtype=th.dtype, device=th.device)
     err = lib.kern_vjp_theta_launch(
         _DTYPES[th.dtype], FAMILIES[kernel_type], x1c.data_ptr(),
-        x2c.data_ptr(), th.data_ptr(), a.data_ptr(), gb.data_ptr(),
+        x2c.data_ptr(), th.data_ptr(), _ptr(a), gb.data_ptr(),
         partial.data_ptr(), out.data_ptr(), B, n1, n2, d,
         torch.cuda.current_stream(th.device).cuda_stream)
     _check(lib, err, "K2 kern_grad_vjp_theta")

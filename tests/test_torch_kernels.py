@@ -132,6 +132,79 @@ def test_k2_plain_matches_pallas_interpret_and_jax_vjp(ktype, alpha, square):
         np.testing.assert_allclose(got, np.asarray(want_pallas), rtol=1e-10)
 
 
+# The CUDA kernels tile the derivative rows over the grid and K2 reads its
+# cotangent in runs of 4 column blocks: d=1 is the fewest blocks (two),
+# d=17 gives 18 column blocks, several runs and a ragged last one.  The
+# tiling does not depend on the family, and the Pallas kernels in interpret
+# mode take ~2.5 s each at d=17 (324 grid steps), so d=17 meets them with
+# SqExp only; jax.vjp checks every family at both dims.
+EDGE_DIMS = [1, 17]
+EDGE_PALLAS = [(kt, al, 1) for kt, al in CASES] + [("SqExp", None, 17)]
+
+
+@pytest.mark.parametrize("ktype,alpha,d", EDGE_PALLAS)
+def test_k1_plain_matches_pallas_interpret_at_edge_dims(ktype, alpha, d):
+    """The plain K1 (what chip_smoke.py holds the CUDA K1 to) against the
+    Pallas kernel in interpret mode at the edge dims, ragged n=10."""
+    x1, _, theta = _pts(9, 10, 10, d, True)
+    with pltpu.force_tpu_interpret_mode():
+        want = jpa.kern_grad_pallas(ktype, jnp.asarray(x1), jnp.asarray(x1),
+                                    jnp.asarray(theta), alpha, block=16)
+    got = ca.kern_grad(ktype, _t(x1), _t(x1), _t(theta), alpha)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("ktype,alpha", CASES)
+@pytest.mark.parametrize("d", EDGE_DIMS)
+@pytest.mark.parametrize("square", [True, False])
+def test_k2_plain_and_regrouped_match_jax_at_edge_dims(ktype, alpha, d,
+                                                       square):
+    """The plain K2 and K2's regrouped contraction (the CUDA kernel's
+    algebra) against jax.vjp at the edge dims, square and rectangular
+    (n1=10, n2=7), and, square (see EDGE_PALLAS), against the Pallas
+    theta-cotangent in interpret mode."""
+    x1, x2, theta = _pts(10, 10, 7, d, square)
+    n1, n2 = x1.shape[0], x2.shape[0]
+    gbar = np.random.default_rng(11).standard_normal(((d + 1) * n1,
+                                                      (d + 1) * n2))
+
+    def ref(th):
+        return jk.kern_grad(ktype, jrt.calc_rtensor(jnp.asarray(x1),
+                                                    jnp.asarray(x2)), th, alpha)
+    want = np.asarray(jax.jit(lambda th, gb: jax.vjp(ref, th)[1](gb)[0])(
+        jnp.asarray(theta), jnp.asarray(gbar)))
+    args = (ktype, _t(x1), _t(x2), _t(theta), alpha, _t(gbar))
+    # sums of (1+d)^2 n1 n2 signed terms in different orders
+    np.testing.assert_allclose(ca.kern_grad_vjp_theta(*args).numpy(), want,
+                               rtol=1e-11)
+    np.testing.assert_allclose(ca.kern_grad_vjp_theta_regrouped(*args).numpy(),
+                               want, rtol=1e-11)
+    if square and (ktype, alpha, d) in EDGE_PALLAS:
+        with pltpu.force_tpu_interpret_mode():
+            want_pallas = jpa.kern_grad_pallas_vjp_theta(
+                ktype, jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(theta),
+                alpha, jnp.asarray(gbar), block=16)
+        np.testing.assert_allclose(ca.kern_grad_vjp_theta(*args).numpy(),
+                                   np.asarray(want_pallas), rtol=1e-10)
+
+
+@pytest.mark.parametrize("ktype,alpha", CASES)
+def test_k2_regrouped_batched_matches_plain(ktype, alpha):
+    """K2's regrouped contraction over a (B, d) batch of theta rows (one
+    alpha per row) against the plain K2, row by row."""
+    x1, x2, _ = _pts(12, 9, 6, 3, False)
+    rng = np.random.default_rng(13)
+    thetas = rng.uniform(0.3, 3, (2, 3))
+    alphas = None if alpha is None else rng.uniform(0.5, 4, 2)
+    gbar = _t(rng.standard_normal((2, 4 * 9, 4 * 6)))
+    got = ca.kern_grad_vjp_theta_regrouped(ktype, _t(x1), _t(x2), _t(thetas),
+                                           _t(alphas), gbar)
+    want = ca.kern_grad_vjp_theta(ktype, _t(x1), _t(x2), _t(thetas),
+                                  _t(alphas), gbar)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12)
+
+
 @pytest.mark.parametrize("ktype,alpha", CASES)
 def test_kern_grad_fn_gradient_matches_autograd(ktype, alpha):
     """KernGradFn (K1 forward, K2 theta-backward, plain x/alpha backward)
