@@ -18,19 +18,27 @@ Phases, each printing its own lines; any failure exits non-zero:
      n_eval=200 Rosenbrock fit (twice; the second is timed warm) and
      prediction with gradients at 128 held-out points, the same fit with
      RatQu (alpha fitted), then the bench.py problem (d=4, n_eval=64)
-     against its RMSE gate, and small fits (3 families, float32) compared
-     with the port's CPU path.  Each path runs with the launch counts set
-     to 0 just before it, prints its own K1/K2 counts and fails unless both
-     launched;
-  5. times at the main path's shape with CUDA events: each kernel at B=1
+     against its RMSE gate, and small fits (3 families, float32, the
+     constrained and rescaling methods, trust-constr) compared with the
+     port's CPU path.  Each path runs with the launch counts set to 0 just
+     before it, prints its own K1/K2 counts and fails unless both launched
+     (the gradient-free small fit launches no K1 and runs outside that
+     check);
+  5. constrained fits at the same width: 'base' (spectral cond, SLSQP under
+     cond <= cond_max) and 'rescale_origin' ('fro' cond, the rescale
+     fixed-point loop), each followed by prediction with gradients at 128
+     held-out points; each fails unless its condition number at the
+     optimum is within 1.01 cond_max and its outputs are finite;
+  6. times at the main path's shape with CUDA events: each kernel at B=1
      and B=41 beside its bound, its plain version and the first port's
      time; for context, one PyTorch write (fill_) and read (sum) of as many
      bytes, KernGradFn's RatQu backward with and without alpha, and one
-     Cholesky; the warm d=10 fit repeated; one warm d=10 fit under
-     torch.profiler, its device time by layer.
-A "[summary]" JSON line gathers the results.  The line before the last is
-a JSON object {"kernels": [...]} whose launch counts are those of the warm
-d=10 fit + predict; the last line is {"ok": true, "device": {...}}.
+     Cholesky; the warm d=10 fit repeated; one warm d=10 fit of 'precon'
+     and one of 'base' under torch.profiler, device time by layer.
+Each phase prints its seconds.  A "[summary]" JSON line gathers the
+results.  The line before the last is a JSON object {"kernels": [...]}
+whose launch counts are those of the warm d=10 fit + predict; the last
+line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -189,13 +197,14 @@ def _rosen_problem(rosenbrock, n, d, seed=0):
 
 
 def _fit(GaussianProcess, x, f, g, kernel_type="SqExp", wellcond="precon",
-         device="cuda", **kw):
-    """One refit through the facade, as a BO step makes it."""
+         device="cuda", calc_cond=False, **kw):
+    """One refit through the facade, as a BO step makes it; with calc_cond
+    the fitted model's condition number is computed too."""
     n, d = x.shape
     gp = GaussianProcess(d, True, kernel_type, wellcond, device=device, **kw)
     gp.init_optz_surr(2)
     gp.set_data(x, f, np.zeros(n), g, np.zeros((n, d)))
-    gp.set_hpara("optz", 0)
+    gp.set_hpara("optz", 0, calc_cond=calc_cond)
     return gp
 
 
@@ -290,36 +299,141 @@ def phase_main(torch, ca, GaussianProcess, rosenbrock):
     out.update(rmse_bench=rmse, t_bench=t_bench, bench_launches=c_bench)
 
     # the card's path against the port's CPU path on small inputs: each
-    # kernel family (RatQu also takes its alpha gradient on the card) and
-    # float32.  The fits may stop a few L-BFGS steps apart
-    # on a flat optimum, so -ln L is compared to rtol 1e-6 (f32: 1e-3) and
-    # the predicted mean to 1e-4 of its scale (f32: 1e-2).
+    # kernel family (RatQu also takes its alpha gradient on the card),
+    # float32, the constrained and rescaling methods and trust-constr (at
+    # cond_max 1e6, where its stopping point does not hang on last bits).
+    # The fits may stop a few steps apart on a flat optimum, so -ln L is
+    # compared to rtol 1e-6 (f32: 1e-3) and the predicted mean to 1e-4 of
+    # its scale (f32: 1e-2).
     d, n = 3, 20
     x, f, g, xt, _, _ = _rosen_problem(rosenbrock, n, d, seed=1)
-    cases = [("SqExp", "precon", "float64"), ("Ma5f2", "precon", "float64"),
-             ("RatQu", "precon", "float64"), ("Ma5f2", "precon", "float32"),
-             ("SqExp", "precon", "float32")]
+    cases = [("SqExp", "precon", "float64", {}),
+             ("Ma5f2", "precon", "float64", {}),
+             ("RatQu", "precon", "float64", {}),
+             ("Ma5f2", "precon", "float32", {}),
+             ("SqExp", "precon", "float32", {}),
+             ("SqExp", "base", "float64", {}),
+             ("SqExp", "rescale_origin", "float64", dict(cond_norm="fro")),
+             ("Ma5f2", "dflt_vmin", "float64", {}),
+             ("SqExp", "base", "float64",
+              dict(optz_mtd="trust-constr", cond_max=1e6,
+                   cond_max_target=1e6)),
+             ("SqExp", "base", "float64", dict(use_grad=False))]
     bad = []
-    for kt, wc, dt in cases:
+    for kt, wc, dt, extra in cases:
         kw = dict(dtype=dt, cond_max_target=1e6 if dt == "float32" else 1e10)
+        kw.update(extra)
+        use_grad = kw.pop("use_grad", True)
+        label = f"small fit {kt} {wc} {dt} {json.dumps(extra)}"
 
         def fit_predict(dev):
-            gp = _fit(GaussianProcess, x, f, g, kt, wc, device=dev, **kw)
+            if use_grad:
+                gp = _fit(GaussianProcess, x, f, g, kt, wc, device=dev, **kw)
+            else:
+                gp = GaussianProcess(d, False, kt, wc, device=dev, **kw)
+                gp.init_optz_surr(2)
+                gp.set_data(x, f, np.zeros(n))
+                gp.set_hpara("optz", 0)
             return gp.history.ln_lkd[0], gp.eval_model(xt)[0]
-        res = {"cuda": _path(torch, ca, f"small fit {kt} {wc} {dt}",
-                             lambda: fit_predict("cuda"))[0],
-               "cpu": fit_predict("cpu")}
+        if use_grad:
+            res_cuda = _path(torch, ca, label, lambda: fit_predict("cuda"))[0]
+        else:
+            # the gradient-free covariance is the plain closed form (as in
+            # the JAX package): no K1 or K2 launch to count
+            log(f"[path] {label}: gradient-free, outside the launch check")
+            res_cuda = fit_predict("cuda")
+        res = {"cuda": res_cuda, "cpu": fit_predict("cpu")}
         dl = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
         dmu = float(np.max(np.abs(res["cuda"][1] - res["cpu"][1]))
                     / np.max(np.abs(res["cpu"][1])))
         tl, tm = (1e-3, 1e-2) if dt == "float32" else (1e-6, 1e-4)
         good = dl < tl and dmu < tm
-        bad += [] if good else [(kt, wc, dt)]
-        log(f"[main] small fit {kt} {wc} {dt} d={d} n_eval={n}, card vs CPU "
-            f"path: lnL rel {dl:.3e} (tol {tl:.0e}), mu rel {dmu:.3e} "
-            f"(tol {tm:.0e}) {'ok' if good else 'FAIL'}")
+        bad += [] if good else [label]
+        log(f"[main] {label} d={d} n_eval={n}, card vs CPU path: lnL rel "
+            f"{dl:.3e} (tol {tl:.0e}), mu rel {dmu:.3e} (tol {tm:.0e}) "
+            f"{'ok' if good else 'FAIL'}")
     if bad:
         raise SystemExit(f"card path disagrees with the CPU path: {bad}")
+    return out
+
+
+CONSTRAINED = (  # conditioning method, options: the slice's two
+    # configurations (the d=10 Baseline/Rescaling traces run 'fro')
+    ("base", {}),
+    ("rescale_origin", {"cond_norm": "fro"}),
+)
+
+
+def phase_constrained(torch, ca, GaussianProcess, rosenbrock):
+    """The slice's constrained fits at the main path's width (d=10,
+    n_eval=200, f64), each followed by prediction with gradients at 128
+    held-out points.  Returns {name: results}."""
+    from gpgradpy_torch.fit import scipy_driver
+    d, n = 10, 200
+    x, f, g, xt, ft, _ = _rosen_problem(rosenbrock, n, d)
+    out = {}
+    for name, kw in CONSTRAINED:
+        def fit_predict():
+            t0 = time.perf_counter()
+            gp = _fit(GaussianProcess, x, f, g, wellcond=name,
+                      calc_cond=True, **kw)
+            torch.cuda.synchronize()
+            t_fit = time.perf_counter() - t0
+            return gp, t_fit, gp.eval_model(xt, calc_grad=True)[:4]
+
+        (gp, t_fit, pred), secs, counts = _path(
+            torch, ca, f"d=10 {name} fit + eval_model at 128 points",
+            fit_predict)
+        h, infos = gp.history, gp.optz_infos
+        calls = {k: int(sum(i[k] for i in infos)) for k in (
+            "optz_n_val", "optz_n_grad", "optz_n_cond", "optz_n_cond_grad")}
+        # one start per inner fit: its iterations are the fit's
+        iters = [int(i["hp_optz_iter_max"]) for i in infos]
+        cond, cmax = float(h.Kcov_cond[0]), gp.cfg.cond_max
+        mu, sig, dmu, dsig = pred
+        finite = all(np.all(np.isfinite(a)) for a in (mu, sig, dmu, dsig))
+        shapes_ok = (mu.shape, sig.shape, dmu.shape, dsig.shape) == (
+            (128,), (128,), (128, d), (128, d))
+        rmse = float(np.sqrt(np.mean((mu - ft) ** 2)))
+        xs = None if gp.DataScl is None else gp.DataScl.xvec_scale.tolist()
+        r = dict(fit_s=t_fit, path_s=secs, launches=counts,
+                 slsqp_iters=iters, calls=calls, cond=cond, cond_max=cmax,
+                 model_cond=gp.condK, neg_lnL=-float(h.ln_lkd[0]),
+                 xvec_scale=xs, finite=finite, rmse=rmse,
+                 theta=np.asarray(gp.hp_vals.theta.cpu()).tolist())
+        out[name] = r
+        log(f"[constrained] {name} d={d} n_eval={n} f64 "
+            f"cond_norm={gp.cfg.cond_norm}: fit {t_fit:.3f} s, SLSQP "
+            f"iterations {iters} (one per inner fit), calls {json.dumps(calls)}")
+        log(f"[constrained] {name}: cond at the optimum {cond:.6g} "
+            f"(cond_max {cmax:.0e}, limit 1.01 cond_max), final model's cond "
+            f"{gp.condK:.6g}, -lnL {r['neg_lnL']:.10g}, xvec_scale {xs}")
+        log(f"[constrained] {name}: eval_model 128 held-out with gradients: "
+            f"finite {finite} shapes {'ok' if shapes_ok else 'WRONG'} rmse "
+            f"{rmse:.6g} (std f_test {np.std(ft):.6g}); K1 {counts['K1']} "
+            f"K2 {counts['K2']} launches")
+        if not (finite and shapes_ok and cond <= 1.01 * cmax
+                and np.isfinite(h.ln_lkd[0])):
+            raise SystemExit(f"constrained fit '{name}' broke its constraint "
+                             f"or gave a non-finite / misshapen output")
+        # one callback evaluation of each kind at the optimum (MLL + cond
+        # from one forward; with gradients, both backward passes), on the
+        # host clock around calls that end in their copy to the host
+        v = gp._prev_hp_vec()
+        r["eval_ms"] = {}
+        for kind, with_grad in (("value", False), ("value+gradient", True)):
+            def one():
+                return scipy_driver.evaluate(
+                    gp.cfg, gp.spec, gp.hp_info_optz_lkd, gp.data,
+                    float(gp._etaK), v, True, True, with_grad)
+            one()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                one()
+            r["eval_ms"][kind] = (time.perf_counter() - t0) / 5 * 1e3
+        log(f"[constrained] {name}: one evaluation at the optimum: value + "
+            f"cond {r['eval_ms']['value']:.2f} ms, with both gradients "
+            f"{r['eval_ms']['value+gradient']:.2f} ms")
     return out
 
 
@@ -444,24 +558,25 @@ GROUPS = (  # kernel-name keywords -> layer, for the fit's time breakdown
     ("K1 covariance assembly", ("kern_grad_kernel",)),
     ("K2 theta-cotangent", ("kern_vjp_theta",)),
     ("Cholesky (potrf)", ("potrf", "getrf")),
-    ("eigh (telemetry cond)", ("syevd", "syev", "sytrd", "stedc", "orgtr",
-                               "ormtr", "steqr", "larf")),
+    ("condition number (eigh)", ("syevd", "syev", "sytrd", "stedc", "orgtr",
+                                 "ormtr", "steqr", "sterf", "latrd", "larf")),
     ("triangular solves / products", ("trsm", "trsv", "gemm", "gemv", "syrk",
                                       "herk", "trmm", "dot")),
 )
 
 
-def phase_profile(torch, GaussianProcess, rosenbrock):
-    """One warm d=10 fit under torch.profiler: device time by kernel and the
-    device's busy share of that same fit's wall time.  Returns (device ms,
-    wall ms), or None where the profiler saw no device time."""
+def phase_profile(torch, GaussianProcess, rosenbrock, wellcond="precon"):
+    """One warm d=10 fit of the given method under torch.profiler: device
+    time by layer (GROUPS) and by kernel, and the device's busy share of
+    that same fit's wall time.  Returns {device_ms, wall_ms, idle_share,
+    layers_ms}, or None where the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     d, n = 10, 200
     x, f, g, _, _, _ = _rosen_problem(rosenbrock, n, d)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _fit(GaussianProcess, x, f, g)
+        _fit(GaussianProcess, x, f, g, wellcond=wellcond)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies); the CPU-side aten ops also
@@ -471,10 +586,11 @@ def phase_profile(torch, GaussianProcess, rosenbrock):
               and "Buffer Flush" not in e.key]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     if not events:
-        log("[profile] the profiler recorded no device time: not measured")
+        log(f"[profile] {wellcond}: the profiler recorded no device time: "
+            f"not measured")
         return None
-    log(f"[profile] warm fit d=10 n_eval=200 under the profiler: wall "
-        f"{wall_ms:.1f} ms, device busy {dev_ms:.1f} ms "
+    log(f"[profile] warm {wellcond} fit d=10 n_eval=200 under the profiler: "
+        f"wall {wall_ms:.1f} ms, device busy {dev_ms:.1f} ms "
         f"({100 * dev_ms / wall_ms:.1f}%), idle {100 * (1 - dev_ms / wall_ms):.1f}%")
     grouped = {name: 0.0 for name, _ in GROUPS}
     grouped["other device work"] = 0.0
@@ -487,7 +603,8 @@ def phase_profile(torch, GaussianProcess, rosenbrock):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[profile]   top {e.self_device_time_total / 1e3:8.2f} ms "
             f"x{e.count:5d} {e.key[:90]}")
-    return dev_ms, wall_ms
+    return {"device_ms": dev_ms, "wall_ms": wall_ms,
+            "idle_share": 1 - dev_ms / wall_ms, "layers_ms": grouped}
 
 
 def main():
@@ -501,13 +618,29 @@ def main():
     from gpgradpy_torch.ops import cuda_assembly as ca
 
     t_start = time.perf_counter()
-    smi = phase_card(torch)
-    phase_build(ca)
-    worst = phase_kernels(torch, ca)
-    main_out = phase_main(torch, ca, GaussianProcess, rosenbrock)
-    rows, ctx = phase_times(torch, ca, KernGradFn)
-    walls = phase_fit_repeats(torch, GaussianProcess, rosenbrock)
-    prof = phase_profile(torch, GaussianProcess, rosenbrock)
+    phase_s = {}
+
+    def phase(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        phase_s[name] = time.perf_counter() - t0
+        log(f"[phase] {name}: {phase_s[name]:.1f} s")
+        return res
+
+    smi = phase("card", phase_card, torch)
+    phase("build", phase_build, ca)
+    worst = phase("kernel checks", phase_kernels, torch, ca)
+    main_out = phase("main path", phase_main, torch, ca, GaussianProcess,
+                     rosenbrock)
+    cons = phase("constrained", phase_constrained, torch, ca,
+                 GaussianProcess, rosenbrock)
+    rows, ctx = phase("kernel times", phase_times, torch, ca, KernGradFn)
+    walls = phase("fit repeats", phase_fit_repeats, torch, GaussianProcess,
+                  rosenbrock)
+    prof = phase("profile precon", phase_profile, torch, GaussianProcess,
+                 rosenbrock)
+    prof_base = phase("profile base", phase_profile, torch, GaussianProcess,
+                      rosenbrock, wellcond="base")
 
     # the results in one line near the end, so that a cut-off tail keeps them
     summary = {
@@ -532,11 +665,14 @@ def main():
         "cholesky_ms": ctx["chol_ms"],
         "same_bytes_one_torch_call_ms": {k: v for k, v in ctx.items()
                                          if k.startswith(("fill_", "sum_"))},
+        "constrained_d10": cons,
+        "phase_s": phase_s,
     }
     if prof is not None:
-        dev_ms, wall_ms = prof
-        summary["profiled_fit"] = {"device_ms": dev_ms, "wall_ms": wall_ms,
-                                   "idle_share": 1 - dev_ms / wall_ms}
+        summary["profiled_fit"] = {k: prof[k] for k in (
+            "device_ms", "wall_ms", "idle_share")}
+    if prof_base is not None:
+        summary["profiled_base_fit"] = prof_base
     log("[summary] " + json.dumps(summary))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 

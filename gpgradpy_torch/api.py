@@ -1,9 +1,12 @@
 """Stateful ``GaussianProcess`` facade over the functional core
-(counterpart of ``gpgradpy_tpu/api.py``, dense solver, 'precon'; 'base' and
-``wellcond_mtd=None`` raise until its constrained fit is ported).
+(counterpart of ``gpgradpy_tpu/api.py``, dense solver).
 
 Same constructor, option surface (constructor kwargs and mutable
-attributes) and methods as the JAX package's facade.  The model lives on
+attributes) and methods as the JAX package's facade.  'precon' fits with
+the batched L-BFGS; every other conditioning method ('base', the
+rescaling methods) fits with the scipy driver under the condition-number
+constraint, the rescaling methods in their scaled frame and, for
+'rescale_*', inside the rescale fixed-point loop.  The model lives on
 one torch device: ``device="cuda"`` (the default) or ``device="cpu"``.
 Without a card the facade raises unless the CPU is asked for; it never
 moves to the CPU by itself.
@@ -20,9 +23,9 @@ import torch
 
 from . import convert
 from .config import GpConfig
-from .fit import multistart
+from .fit import multistart, scipy_driver
 from .fit.history import FitHistory
-from .model import conditioning, likelihood, predict
+from .model import conditioning, likelihood, predict, rescale
 from .ops import rtensor
 from .types import (DataSpec, GpData, HpInfo, Hypers, hp_vec_to_hypers,
                     hypers_to_hp_vec, make_data_spec)
@@ -75,10 +78,15 @@ class GaussianProcess:
         self.hp_vals: Optional[Hypers] = None
         self.hp_info_optz_lkd: Optional[HpInfo] = None
         self.history: Optional[FitHistory] = None
+        self.DataScl: Optional[rescale.Rescaling] = None
+        # optimizer telemetry of each inner fit of the last training round
+        # (one, or one per iteration of the rescale fixed-point loop)
+        self.optz_infos: list = []
         self._eval_state = None
         self._hp_vals_model_setup = None
         self._eta_Kbase = self._eta_Kgrad = self._etaK = np.nan
         self._vmin_init = np.nan
+        self._vmin_req_grad = np.nan
         self._time_chofac = 0.0
         self._time_chofac_last = np.nan
         self._fit_seed = 1
@@ -124,6 +132,10 @@ class GaussianProcess:
     @property
     def b_use_cond_cstr(self):
         return self.cfg.b_use_cond_cstr
+
+    @property
+    def b_use_data_scl(self):
+        return self.cfg.b_use_data_scl
 
     @property
     def b_has_noisy_data(self):
@@ -183,13 +195,40 @@ class GaussianProcess:
         self._vmin_init = (float(rtensor.calc_dist_min(torch.as_tensor(x_eval)))
                            if n_eval > 1 else np.nan)
         self.hp_info_optz_lkd = self.set_hp_optz_info()
+
+        # rescaling frame of the rescaling methods
+        if cfg.b_use_data_scl:
+            if cfg.wellcond_mtd == "rescale_origin":
+                dist_set = conditioning.calc_mtd_rescale_origin_vreq(n_eval,
+                                                                     cfg.dim)
+                self._vmin_req_grad = dist_set
+                method = "set_vmin"
+            elif cfg.wellcond_mtd == "rescale_eta_vary":
+                dist_set, method = cfg.vmin_rescale_eta_vary, "set_vmin"
+            elif cfg.wellcond_mtd == "dflt_vmin":
+                dist_set, method = cfg.cond_dist_min_dflt, "set_vmin"
+            else:  # dflt_vmax
+                dist_set, method = cfg.cond_dist_max_dflt, "set_vmax"
+            self.DataScl = rescale.Rescaling(x_eval, x_scl_method=method,
+                                             dist_set=dist_set)
+            self.DataScl.set_obj_data(fval, self._std_fval_in, grad,
+                                      self._std_grad_in)
+        else:
+            self.DataScl = None
+
         self._refresh_core_data()
         self._eval_state = None
 
     def _refresh_core_data(self):
-        """Build the device-resident GpData (padding points appended)."""
-        x, f = self._x_eval_in, self._fval_in
-        std_f, g, std_g = self._std_fval_in, self._grad_in, self._std_grad_in
+        """Build the device-resident GpData in the working (scaled) frame;
+        padding points are appended after the frame transform."""
+        if self.DataScl is not None:
+            x = self.DataScl.get_scl_x()
+            f, std_f, g, std_g = self.DataScl.get_scl_obj_data()
+        else:
+            x, f = self._x_eval_in, self._fval_in
+            std_f, g, std_g = (self._std_fval_in, self._grad_in,
+                               self._std_grad_in)
         n_pad = self.spec.n_pad_eval
         if n_pad:
             x = np.concatenate([x, np.tile(x[:1], (n_pad, 1))])
@@ -252,11 +291,14 @@ class GaussianProcess:
     setup_hp_idx4optz = set_hp_optz_info
 
     def get_init_hp_vals(self) -> Hypers:
-        """Initial hyperparameters used while n_eval <= hp_const_n_eval."""
+        """Initial hyperparameters used while n_eval <= hp_const_n_eval.
+        beta[0] is the mean of the working frame's values (scaled under a
+        rescaling method), padding zeros included, as in the JAX
+        package."""
         cfg, spec = self.cfg, self.spec
         theta = cfg.hp_theta_init * np.ones(cfg.dim)
         beta = np.zeros(cfg.n_beta_coeff)
-        beta[0] = float(np.mean(self._fval_in))
+        beta[0] = float(np.mean(self.data.fval.cpu().numpy()))
         var_fval = None if spec.known_eps_fval else cfg.hp_var_fval_init
         var_fgrad = (None if (not cfg.use_grad or spec.known_eps_fgrad)
                      else cfg.hp_var_fgrad_init)
@@ -308,12 +350,14 @@ class GaussianProcess:
         self.history.store(
             i_optz, Hypers(**convert.hypers_to_numpy(hp_vals)), surr_optz_info,
             cond_val, self.cfg.cond_max, self._eta_Kbase, self._eta_Kgrad,
-            self.cfg.use_grad, self._vmin_init, np.nan, None, self._fval_in,
-            ln_lkd, time_hp_optz, time_chofac, time_pick_hp0)
+            self.cfg.use_grad, self._vmin_init, self._vmin_req_grad,
+            None if self.DataScl is None else self.DataScl.xvec_scale,
+            self._fval_in, ln_lkd, time_hp_optz, time_chofac, time_pick_hp0)
 
     def optz_hp(self, i_optz: int):
         """One hyperparameter-training round."""
         cfg = self.cfg
+        self.optz_infos = []
         if self.n_eval <= cfg.hp_const_n_eval:
             hp_vals = self.get_init_hp_vals()
             lkd, _ = self.calc_lkd_all(hp_vals, calc_cond=True)
@@ -321,7 +365,10 @@ class GaussianProcess:
             return
 
         t0 = time.time()
-        fit = self._run_fit(i_optz)
+        if "rescale" in cfg.wellcond_mtd and cfg.cond_vreq_max_iter > 1:
+            fit = self._optz_hp_rescale_loop(i_optz)
+        else:
+            fit = self._run_fit(i_optz)
         t_optz = time.time() - t0
         hp_vals = hp_vec_to_hypers(self.hp_info_optz_lkd,
                                    self._tensor(fit.hp_vec))
@@ -331,11 +378,88 @@ class GaussianProcess:
                                  ln_lkd=-float(fit.neg_lkd))
 
     def _run_fit(self, i_optz, x0_override=None):
-        return multistart.fit_map(
-            self.cfg, self.spec, self.hp_info_optz_lkd, self.data,
-            float(self._etaK), history=self.history, i_optz=i_optz,
-            seed=self._fit_seed, x0_override=x0_override,
-            hp_prev=self._prev_hp_vec())
+        cfg = self.cfg
+        use_scipy = (cfg.optz_mtd in ("slsqp", "SLSQP", "trust-constr")
+                     or cfg.b_use_cond_cstr)
+        fitter = scipy_driver.fit_map_scipy if use_scipy else multistart.fit_map
+        fit = fitter(cfg, self.spec, self.hp_info_optz_lkd, self.data,
+                     float(self._etaK), history=self.history, i_optz=i_optz,
+                     seed=self._fit_seed, x0_override=x0_override,
+                     hp_prev=self._prev_hp_vec())
+        self.optz_infos.append(fit.info)
+        return fit
+
+    def _optz_hp_rescale_loop(self, i_optz):
+        """The rescale fixed-point loop (api.py:595-633 of the JAX package):
+        fit, rescale x so that theta's spread shrinks, refit warm-started
+        from the previous optimum, up to cond_vreq_max_iter times; then keep
+        the scaling whose theta spread was least, with its estimated
+        theta."""
+        cfg = self.cfg
+        fit = self._run_fit(i_optz)
+        if self.n_eval <= 1:
+            return fit
+
+        max_iter = cfg.cond_vreq_max_iter
+        theta_all = np.full((max_iter, cfg.dim), np.nan)
+        dist_all = np.full(max_iter, np.nan)
+        scale_all = np.full((max_iter, cfg.dim), np.nan)
+
+        best_hp = np.asarray(fit.hp_vec)
+        theta_new = best_hp[:cfg.dim]          # log10 theta
+        cnt = 0
+        while True:
+            theta_new, est_dist, xvec_new = self._rescale_w_theta_sol(theta_new)
+            theta_all[cnt] = theta_new
+            dist_all[cnt] = est_dist
+            scale_all[cnt] = xvec_new
+            if cnt == max_iter - 1 or est_dist < cfg.cond_vreq_iter_tol:
+                break
+            # the next inner fit starts from the previous best hp with the
+            # rescaled theta
+            warm = best_hp.copy()
+            warm[:cfg.dim] = theta_new
+            fit = self._run_fit(i_optz, x0_override=warm[None, :])
+            best_hp = np.asarray(fit.hp_vec)
+            theta_new = best_hp[:cfg.dim]
+            cnt += 1
+
+        idx = int(np.nanargmin(dist_all))
+        self.DataScl.set_xscale_data(xvec_scale_in=scale_all[idx])
+        self._refresh_core_data()
+        final_hp = best_hp.copy()
+        final_hp[:cfg.dim] = theta_all[idx]
+        return fit._replace(hp_vec=final_hp)
+
+    def _rescale_w_theta_sol(self, hp_theta_log):
+        """New x scaling from a fitted theta (api.py:635-661 of the JAX
+        package): -> (estimated theta in optimization space, spread of log10
+        theta, new xvec_scale)."""
+        cfg = self.cfg
+        if cfg.optz_log_hp_theta:
+            theta_sol = 10.0 ** np.asarray(hp_theta_log)
+            log_theta = np.asarray(hp_theta_log)
+        else:
+            theta_sol = np.asarray(hp_theta_log)
+            log_theta = np.log10(theta_sol)
+        vreq = conditioning.calc_mtd_rescale_origin_vreq(self.n_eval, cfg.dim)
+
+        x_scl = self.DataScl.get_scl_x()
+        xvec_scale_v1 = self.DataScl.xvec_scale
+        theta_star = 10.0 ** np.mean(log_theta)
+        xvec_v2 = np.sqrt(theta_sol / theta_star)
+        x_v2 = x_scl * xvec_v2[None, :]
+        d2 = np.sqrt(np.sum((x_v2[:, None] - x_v2[None, :]) ** 2, -1))
+        np.fill_diagonal(d2, np.inf)
+        min_dist = max(float(d2.min()), 1e-15)
+        correction = vreq / min_dist
+        xvec_new = xvec_scale_v1 * xvec_v2 * correction
+
+        dist2 = (np.dot(log_theta, log_theta)
+                 - np.dot(log_theta, np.ones(cfg.dim)) ** 2 / cfg.dim)
+        theta_est = np.ones(cfg.dim) * theta_star / correction ** 2
+        theta_out = (np.log10(theta_est) if cfg.optz_log_hp_theta else theta_est)
+        return theta_out, dist2, xvec_new
 
     def _prev_hp_vec(self):
         """Previous round's converged hp as an optimization-space vector (or
@@ -401,40 +525,91 @@ class GaussianProcess:
         assert self.hp_vals is self._hp_vals_model_setup, \
             "Cannot change hp_vals between setup_eval_model() and eval_model()"
 
-    @staticmethod
-    def _host(vals, squeeze_nx):
-        out = [None if v is None else v.cpu().numpy() for v in vals]
+    def _query(self, x2model_in, squeeze_nx):
+        """Query points (init frame, host) -> working-frame tensor."""
+        self._check_eval_ready()
+        xq = np.atleast_2d(np.asarray(x2model_in, float))
         if squeeze_nx:
-            out = [None if v is None else v[0] for v in out]
-        return tuple(out)
+            assert xq.shape[0] == 1
+        if self.DataScl is not None:
+            xq = self.DataScl.x_init_2_scl(xq)
+        return self._tensor(xq)
+
+    @staticmethod
+    def _squeeze(vals, squeeze_nx):
+        if squeeze_nx:
+            vals = [None if v is None else v[0] for v in vals]
+        return tuple(vals)
 
     def eval_model(self, x2model_in, calc_grad=False, calc_hess=False,
                    squeeze_nx=False):
-        self._check_eval_ready()
         if calc_hess:
             assert calc_grad, "calc_hess requires calc_grad"
-        xq = np.atleast_2d(np.asarray(x2model_in, float))
-        if squeeze_nx:
-            assert xq.shape[0] == 1
+        xq = self._query(x2model_in, squeeze_nx)
         with torch.no_grad():
             out = predict.eval_model(self.cfg, self.spec, self.data,
-                                     self._eval_state, self._tensor(xq),
+                                     self._eval_state, xq,
                                      calc_grad=calc_grad, calc_hess=calc_hess)
-        return self._host(out, squeeze_nx)
+        out = [None if v is None else v.cpu().numpy() for v in out]
+        if self.DataScl is not None:
+            out = self.DataScl.obj_scl_2_init(*out)
+        return self._squeeze(out, squeeze_nx)
 
     def eval_model_var(self, x2model_in, calc_grad=False, calc_hess=False,
                        squeeze_nx=False):
-        """Variance (not std) and its derivatives."""
-        self._check_eval_ready()
-        xq = np.atleast_2d(np.asarray(x2model_in, float))
-        if squeeze_nx:
-            assert xq.shape[0] == 1
+        """Variance (not std) and its derivatives.  Under a rescaling frame
+        var_init = var_scl / obj_scale^2 with a 1/xvec_scale factor per
+        x-derivative, as in the JAX package."""
+        xq = self._query(x2model_in, squeeze_nx)
         with torch.no_grad():
             out = predict.eval_model_var(self.cfg, self.spec, self.data,
-                                         self._eval_state, self._tensor(xq),
+                                         self._eval_state, xq,
                                          calc_grad=calc_grad,
                                          calc_hess=calc_hess)
-        return self._host(out, squeeze_nx)
+        out = [None if v is None else v.cpu().numpy() for v in out]
+        if self.DataScl is not None:
+            s = self.DataScl
+            o2 = s.obj_scale ** 2
+            if out[0] is not None:
+                out[0] = out[0] / o2
+            if out[1] is not None:
+                out[1] = out[1] * (s.xvec_scale[None, :] / o2)
+            if out[2] is not None:
+                out[2] = out[2] * (np.outer(s.xvec_scale, s.xvec_scale)[None]
+                                   / o2)
+        return self._squeeze(out, squeeze_nx)
+
+    # ------------------------------------------------------------------
+    # frames / data access
+    # ------------------------------------------------------------------
+
+    def get_scl_x_w_dist(self):
+        return (self.data.x.cpu().numpy(),
+                rtensor.calc_rtensor(self.data.x, self.data.x).cpu().numpy())
+
+    def x_init_2_scl(self, x):
+        return x if self.DataScl is None else self.DataScl.x_init_2_scl(x)
+
+    def x_scl_2_init(self, x):
+        return x if self.DataScl is None else self.DataScl.x_scl_2_init(x)
+
+    def get_init_eval_data(self):
+        return self._fval_in, self._std_fval_in, self._grad_in, self._std_grad_in
+
+    def get_scl_eval_data(self):
+        if self.DataScl is None:
+            return self.get_init_eval_data()
+        return self.DataScl.get_scl_obj_data()
+
+    def data_init_2_scl(self, *args, **kw):
+        if self.DataScl is None:
+            return args if args else None
+        return self.DataScl.obj_init_2_scl(*args, **kw)
+
+    def data_scl_2_init(self, *args, **kw):
+        if self.DataScl is None:
+            return args if args else None
+        return self.DataScl.obj_scl_2_init(*args, **kw)
 
     # ------------------------------------------------------------------
     # features of later slices

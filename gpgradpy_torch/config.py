@@ -3,10 +3,10 @@
 A copy of ``gpgradpy_tpu.config.GpConfig`` (the JAX package's option
 surface) without ``use_pallas``: the covariance takes the hand-written CUDA
 kernels whenever its tensors lie on a CUDA device, with no switch.  The
-switches of features not ported yet (``wellcond_mtd``, ``optz_mtd``,
-``solver``, ``polish_cond_target``, ``n_refine_predict``) are accepted by
-the dataclass and refused by ``check_ported`` with a pointer to the
-ROADMAP.md item that brings them; their tuning options come with that item.
+switches of features not ported yet (``solver``, ``polish_cond_target``,
+``n_refine_predict``) are accepted by the dataclass and refused by
+``check_ported`` with a pointer to the ROADMAP.md item that brings them;
+their tuning options come with that item.
 """
 
 from __future__ import annotations
@@ -39,7 +39,8 @@ class GpConfig:
     mean_fun_type: str = "poly_ord_0"   # 'poly_ord_0' or 'poly_ord_1'
 
     # --- hyperparameter optimization ---
-    optz_mtd: str = "lbfgs"
+    optz_mtd: str = "lbfgs"               # 'lbfgs' (batched) or 'slsqp' /
+                                          # 'trust-constr' (scipy driver)
     optz_n_x0: int = 5
     optz_iter_max: int = 250
     optz_tol_obj: float = 1e-12
@@ -84,6 +85,14 @@ class GpConfig:
     cond_max_abs: float = 1e16
     cond_norm: int = 2                    # 2 (spectral, eigh) or 'fro'
 
+    # --- rescaling methods ---
+    cond_dist_min_dflt: float = 1.0       # 'dflt_vmin': min point distance
+    cond_dist_max_dflt: float = 1.0       # 'dflt_vmax': max point distance
+
+    cond_vreq_max_iter: int = 3           # rescale fixed-point iterations
+    vmin_rescale_eta_vary: float = 1.0    # 'rescale_eta_vary': min distance
+    cond_vreq_iter_tol: float = 1e-1      # fixed-point stop on theta spread
+
     # --- misc ---
     b_optz_hp_kernel: bool = True
     varK_min: float = 1e-32
@@ -112,17 +121,6 @@ class GpConfig:
 
     def check_ported(self):
         """Raise NotImplementedError for options this port does not run yet."""
-        if self.wellcond_mtd != "precon":
-            # the JAX package fits every other method, 'base' included, with
-            # SLSQP under the condition-number constraint (b_use_cond_cstr)
-            raise NotImplementedError(
-                f"wellcond_mtd={self.wellcond_mtd!r}: every method but "
-                "'precon' takes the constrained fit, which comes with "
-                "ROADMAP.md Queue 1 item 8")
-        if self.optz_mtd != "lbfgs":
-            raise NotImplementedError(
-                f"optz_mtd={self.optz_mtd!r}: the scipy/SLSQP constrained "
-                "fit comes with ROADMAP.md Queue 1 item 8")
         if self.solver == "iterative":
             raise NotImplementedError(
                 "solver='iterative' comes with ROADMAP.md Queue 1 item 9")
@@ -138,6 +136,10 @@ class GpConfig:
     @property
     def b_use_cond_cstr(self) -> bool:
         return self.wellcond_mtd != "precon"
+
+    @property
+    def b_use_data_scl(self) -> bool:
+        return ("rescale" in self.wellcond_mtd) or ("dflt_v" in self.wellcond_mtd)
 
     @property
     def kernel_has_hp(self) -> bool:

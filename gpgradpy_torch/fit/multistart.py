@@ -98,6 +98,34 @@ class FitResult(NamedTuple):
     info: dict              # optimizer telemetry
 
 
+def hp_rows(cfg: GpConfig, data: GpData, X) -> torch.Tensor:
+    """Host hp vectors as a tensor of the model's dtype on its device."""
+    dt = torch.float64 if cfg.dtype == "float64" else torch.float32
+    return torch.as_tensor(np.asarray(X), dtype=dt, device=data.x.device)
+
+
+def scan_neg_mll(cfg: GpConfig, spec: DataSpec, info: HpInfo, data: GpData,
+                 eta_const: float, X):
+    """The start scan: -ln L (with the restoring surrogate) of every row of
+    X in one batched evaluation.  Returns the values on the host, inf where
+    not finite, and the number of rows whose Cholesky failed."""
+    with torch.no_grad():
+        vals, lkd = likelihood.neg_mll(cfg, spec, info, data,
+                                       hp_rows(cfg, data, X), eta_const)
+    vals = vals.cpu().numpy()
+    return np.where(np.isfinite(vals), vals, np.inf), int((~lkd.ok).sum())
+
+
+def lkd_cond_at(cfg: GpConfig, spec: DataSpec, info: HpInfo, data: GpData,
+                eta_const: float, X) -> likelihood.LkdInfo:
+    """MLL and condition number at hp vector(s) X (counterpart of
+    ``_jit_lkd_cond``, multistart.py:120 of the JAX package)."""
+    with torch.no_grad():
+        return likelihood.calc_lkd_hp_vec(cfg, spec, info, data,
+                                          hp_rows(cfg, data, X), eta_const,
+                                          calc_cond=True)
+
+
 def fit_map(cfg: GpConfig, spec: DataSpec, info: HpInfo, data: GpData,
             eta_const: float, history=None, i_optz: int = 0,
             seed: int = 1, x0_override=None, with_cond: bool = True,
@@ -108,8 +136,6 @@ def fit_map(cfg: GpConfig, spec: DataSpec, info: HpInfo, data: GpData,
     x0_override (k, n_hp) replaces the LHS/hp_best start policy.  hp_prev,
     when given, joins the start-candidate pool (as its last row; without it
     the pool repeats its first row, as in the JAX package)."""
-    dev = data.x.device
-    dt = torch.float64 if cfg.dtype == "float64" else torch.float32
     np_dt = np.float64 if cfg.dtype == "float64" else np.float32
     bounds = get_hp_bounds(cfg, info, history, i_optz)
     if x0_override is not None:
@@ -134,31 +160,23 @@ def fit_map(cfg: GpConfig, spec: DataSpec, info: HpInfo, data: GpData,
                 bounds.box_lb, bounds.box_ub)[None, :]])
     x0_np = x0_np.astype(np_dt)
 
-    def rows(X):
-        return torch.as_tensor(np.asarray(X), dtype=dt, device=dev)
-
-    n_fail_scan = 0.0
+    n_fail_scan = 0
     starts = x0_np
     if hp_best:
-        with torch.no_grad():
-            vals, lkd = likelihood.neg_mll(cfg, spec, info, data, rows(x0_np),
-                                           eta_const)
-        n_fail_scan = float((~lkd.ok).sum())
-        vals = vals.cpu().numpy()
-        vals = np.where(np.isfinite(vals), vals, np.inf)
+        vals, n_fail_scan = scan_neg_mll(cfg, spec, info, data, eta_const,
+                                         x0_np)
         starts = x0_np[np.argmin(vals)][None, :]
 
-    def lkd_at(X, calc_cond):
-        with torch.no_grad():
-            return likelihood.calc_lkd_hp_vec(cfg, spec, info, data, rows(X),
-                                              eta_const, calc_cond=calc_cond)
+    def cond_at(X):
+        return lkd_cond_at(cfg, spec, info, data, eta_const, X).cond
 
-    init_cond = (float(lkd_at(starts, True).cond.max()) if with_cond
+    init_cond = (float(cond_at(starts).max()) if with_cond
                  else float("nan"))
 
     def obj(X):
         val, g, lkd = likelihood.neg_mll_and_grad(cfg, spec, info, data,
-                                                  rows(X), eta_const)
+                                                  hp_rows(cfg, data, X),
+                                                  eta_const)
         # aux: 1 where the Cholesky failed and the restoring surrogate fired
         return (val.cpu().numpy(), g.cpu().numpy(),
                 (~lkd.ok).to(val.dtype).cpu().numpy())
@@ -170,7 +188,7 @@ def fit_map(cfg: GpConfig, spec: DataSpec, info: HpInfo, data: GpData,
     fvals = np.where(np.isfinite(res.f), res.f, np.inf)
     best = int(np.argmin(fvals))
     best_hp = res.x[best]
-    cond = (float(lkd_at(best_hp[None, :], True).cond[0]) if with_cond
+    cond = (float(cond_at(best_hp[None, :])[0]) if with_cond
             else float("nan"))
     tele = {
         "hp_optz_success": float(np.mean(res.converged)),

@@ -190,7 +190,9 @@ def assemble_keta(cfg: GpConfig, spec: DataSpec, data: GpData, hp: Hypers,
 
 def calc_cond(ops: KetaOps, norm=2) -> torch.Tensor:
     """Condition number of the factorized matrix M: 2 -> spectral (eigh),
-    'fro' -> Frobenius via Cholesky solves."""
+    'fro' -> Frobenius via Cholesky solves.  Both are differentiable: the
+    constrained fit takes the gradient of either (assembly.py:210-223 of the
+    JAX package)."""
     if norm == "fro":
         return linalg.cond_fro_w_chol(ops.M, ops.fac)
     assert norm == 2, f"cond_norm must be 2 or 'fro', got {norm!r}"

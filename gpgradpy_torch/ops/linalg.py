@@ -1,5 +1,5 @@
 """Dense linear algebra for the GP core: Cholesky with a success flag,
-Cholesky solves, log-determinant and condition numbers
+Cholesky solves, log-determinant and differentiable condition numbers
 (counterpart of ``gpgradpy_tpu/ops/linalg.py``).
 
 Every function takes an optional leading batch of matrices.  The
@@ -43,18 +43,66 @@ def logdet_from_chol(fac: CholFac) -> torch.Tensor:
     return 2.0 * torch.log(torch.diagonal(fac.L, dim1=-2, dim2=-1)).sum(-1)
 
 
+class CondEigh(torch.autograd.Function):
+    """Spectral condition number w_max / max(w_min, tiny) of a symmetric
+    matrix (..., n, n), with the closed-form rank-1 backward of the JAX
+    package's custom VJP (linalg.py:135-174 there):
+
+        d cond / dA = v_max v_max^T / w_min
+                      - active * w_max / w_min^2 * v_min v_min^T,
+
+    where ``active`` zeroes the second term where w_min is clamped at tiny
+    (the value is locally constant in it).  The JAX package multiplies by
+    ``active`` and gets NaN there (tiny^2 underflows, 0 * inf); the port
+    selects the zero.  The forward takes eigenvectors only when a gradient
+    is asked for.
+
+    ``torch.linalg.eigh`` raises on a non-finite matrix where
+    ``jnp.linalg.eigh`` returns NaN; a batch row that is not finite gets the
+    JAX outcome (NaN condition number, NaN gradient) without its matrix
+    reaching eigh (the identity takes its place there)."""
+
+    @staticmethod
+    def forward(ctx, A):
+        finite = torch.isfinite(A).all(-1).all(-1)
+        eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+        A_safe = torch.where(finite[..., None, None], A, eye)
+        if ctx.needs_input_grad[0]:
+            w, V = torch.linalg.eigh(A_safe)
+        else:
+            w, V = torch.linalg.eigvalsh(A_safe), None
+        w = torch.where(finite[..., None], w, float("nan"))
+        ctx.save_for_backward(w, V)
+        tiny = torch.finfo(A.dtype).tiny
+        return w[..., -1] / torch.clamp_min(w[..., 0], tiny)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, V = ctx.saved_tensors
+        tiny = torch.finfo(w.dtype).tiny
+        w_lo, w_hi = w[..., 0], w[..., -1]
+        w_min = torch.clamp_min(w_lo, tiny)
+        v_min, v_max = V[..., :, 0], V[..., :, -1]
+        c_max = (g / w_min)[..., None, None]
+        # where w_min is clamped, tiny^2 underflows to 0: select the zero
+        # rather than multiply it in (0 * inf is NaN)
+        c_min = torch.where(w_lo > tiny, g * w_hi / (w_min * w_min),
+                            torch.zeros_like(g))[..., None, None]
+        return (c_max * (v_max[..., :, None] * v_max[..., None, :])
+                - c_min * (v_min[..., :, None] * v_min[..., None, :]))
+
+
 def cond_eigh(A: torch.Tensor) -> torch.Tensor:
-    """Spectral condition number of a symmetric matrix (telemetry only: no
-    gradient is taken through it on the ported path; its closed-form rank-1
-    backward comes with the constrained SLSQP fit)."""
-    with torch.no_grad():
-        w = torch.linalg.eigvalsh(A)
-        w_min = torch.clamp_min(w[..., 0], torch.finfo(A.dtype).tiny)
-        return w[..., -1] / w_min
+    """Spectral condition number of a symmetric matrix (..., n, n),
+    differentiable (``CondEigh``)."""
+    return CondEigh.apply(A)
 
 
 def cond_fro_w_chol(A: torch.Tensor, fac: CholFac) -> torch.Tensor:
-    """Frobenius-norm condition number ||A||_F ||A^-1||_F."""
+    """Frobenius-norm condition number ||A||_F ||A^-1||_F; autograd
+    differentiates it through the Cholesky solves.  A row whose Cholesky
+    failed has the identity as its factor and gets ||A||_F sqrt(n), as in
+    the JAX package."""
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     A_inv = cho_solve(fac, eye.expand_as(A))
     return (torch.linalg.matrix_norm(A, "fro")

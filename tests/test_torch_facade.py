@@ -1,7 +1,7 @@
 """The port's GaussianProcess facade end to end on the CPU, against the JAX
 package's facade (float64), plus the port's contracts: the device rule,
-the options not ported yet ('base' among them), float32, padding, history,
-and a package that imports nothing of JAX."""
+the options not ported yet, 'base', float32, padding, history, and a
+package that imports nothing of JAX."""
 
 import ast
 import pathlib
@@ -69,10 +69,8 @@ def test_facade_needs_a_card_or_an_explicit_cpu():
 
 
 @pytest.mark.parametrize("option", [
-    dict(wellcond_mtd="rescale_origin"), dict(wellcond_mtd="dflt_vmax"),
-    dict(wellcond_mtd="base"), dict(optz_mtd="slsqp"), dict(solver="iterative"),
-    dict(solver="dense_dist"), dict(polish_cond_target=1e10),
-    dict(n_refine_predict=2)])
+    dict(solver="iterative"), dict(solver="dense_dist"),
+    dict(polish_cond_target=1e10), dict(n_refine_predict=2)])
 def test_options_of_later_slices_raise(option):
     kw = dict(option)
     wellcond = kw.pop("wellcond_mtd", "precon")
@@ -84,16 +82,20 @@ def test_options_of_later_slices_raise(option):
 
 
 def test_base_method_float32_and_padding():
-    """'base' (also reached by wellcond_mtd=None) is refused until its
-    constrained fit is ported, as the JAX package fits it with SLSQP under
-    the condition-number constraint; 'precon' fits and interpolates the
-    data; float32 runs end to end; padding the dataset leaves the fit and
-    the predictions unchanged."""
-    for wellcond in ("base", None):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            GaussianProcess(2, True, "SqExp", wellcond, device="cpu")
-
+    """'base' (also reached by wellcond_mtd=None) fits with SLSQP under the
+    condition-number constraint, as in the JAX package, to the same -ln L;
+    'precon' fits and interpolates the data; float32 runs end to end;
+    padding the dataset leaves the fit and the predictions unchanged."""
     x, f, g, xq = _data(n=10)
+    gp_j = _fit(JaxGP, 2, x, f, g, "SqExp", "base")
+    for wellcond in ("base", None):
+        gp_b = _fit(GaussianProcess, 2, x, f, g, "SqExp", wellcond,
+                    device="cpu")
+        np.testing.assert_allclose(gp_b.history.ln_lkd[0],
+                                   gp_j.history.ln_lkd[0], rtol=1e-6)
+        assert gp_b.history.Kcov_cond[0] <= 1.01 * gp_b.cfg.cond_max
+
+
     gp_0 = _fit(GaussianProcess, 2, x, f, g, device="cpu")
     assert np.isfinite(gp_0.history.ln_lkd[0])
     np.testing.assert_allclose(gp_0.eval_model(x)[0], f,
