@@ -11,7 +11,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      card, 3 families x f32/f64 x square/rectangular/ragged x batched, and
      the edges of the kernels' tiling and 16-byte accesses: d=1, d=33,
      n1=201 against n2=37 (rows that break 16-byte alignment), B=2, each
-     also in f32 and all three families; then K2 run twice on
+     also in f32 and all three families, and the iterative path's row
+     tiles (256 and the ragged 208 points against 2000, f64); then K2 run
+     twice on
      the same inputs at the main path's shape (B=1, B=41) must agree
      bitwise;
   4. main path, through the GaussianProcess facade in f64: a d=10,
@@ -29,12 +31,27 @@ Phases, each printing its own lines; any failure exits non-zero:
      fixed-point loop), each followed by prediction with gradients at 128
      held-out points; each fails unless its condition number at the
      optimum is within 1.01 cond_max and its outputs are finite;
-  6. times at the main path's shape with CUDA events: each kernel at B=1
+  6. the iterative solver (solver='iterative'): its matvec KernMatvecFn
+     (K1 per row tile + product; K2 per tile in the theta backward) against
+     the plain kern_matvec, forward and theta gradient, 3 families x
+     f64/f32, n_eval=201 in tiles of 64, full and masked (partial-gradient,
+     noise and eta) layouts, one launch per tile; the graphed CG update
+     against the eager one; '[iterative]': a d=10, n_eval=200 facade fit
+     held to the dense fit by the JAX criterion, its predict against the
+     dense predict at the same theta, and one objective under the
+     profiler; '[iterative-large]': predict at n_eval=2000 (N = 22 000)
+     against the dense facade, one timed objective, each CG solve and both
+     peak memories; iterative fits on the card against the CPU ('precon'
+     and the rescale loop), with eval_model_var and make_predict_fn on the
+     card held to eval_model;
+  7. times at the main path's shape with CUDA events: each kernel at B=1
      and B=41 beside its bound, its plain version and the first port's
-     time; for context, one PyTorch write (fill_) and read (sum) of as many
-     bytes, KernGradFn's RatQu backward with and without alpha, and one
-     Cholesky; the warm d=10 fit repeated; one warm d=10 fit of 'precon'
-     and one of 'base' under torch.profiler, device time by layer.
+     time, and at the iterative path's row tile (256 x 2000 points); for
+     context, one PyTorch write (fill_) and read (sum) of as many bytes,
+     the row tile's products, KernGradFn's RatQu backward with and without
+     alpha, and one Cholesky; the warm d=10 fit repeated; one warm d=10 fit
+     of 'precon' and one of 'base' under torch.profiler, device time by
+     layer.
 Each phase prints its seconds.  A "[summary]" JSON line gathers the
 results.  The line before the last is a JSON object {"kernels": [...]}
 whose launch counts are those of the warm d=10 fit + predict; the last
@@ -126,8 +143,9 @@ def _inputs(torch, rng, n1, n2, d, B, dtype, kernel_type, same):
 
 
 def phase_kernels(torch, ca):
-    """K1/K2 against their plain versions; returns the max abs errors at the
-    main path's shapes (f64, n=200, d=10)."""
+    """K1/K2 against their plain versions, at the main path's shapes, the
+    tiling's edges and the iterative path's row tiles; returns the max abs
+    errors at the main path's shapes (f64, n=200, d=10)."""
     rng = np.random.default_rng(0)
     cases = [  # (n1, n2, d, B, same points)
         (37, 37, 3, None, True),     # ragged, square
@@ -141,6 +159,10 @@ def phase_kernels(torch, ca):
         (40, 33, 33, None, False),   # d=33: 34 column blocks per row
         (201, 37, 5, 2, False),      # ragged, rectangular, rows not 16-byte
                                      # aligned (element-wise access), B=2
+        # the [iterative-large] matvec's row tiles (f64 only): 256 points
+        # against n_eval=2000, and the ragged last tile of 208
+        (256, 2000, 10, None, False),
+        (208, 2000, 10, None, False),
     ]
     worst = {"K1": 0.0, "K2": 0.0}
     ok = True
@@ -148,6 +170,8 @@ def phase_kernels(torch, ca):
         for dt in (torch.float64, torch.float32):
             dname = str(dt).split(".")[-1]
             for n1, n2, d, B, same in cases:
+                if n2 == 2000 and dt != torch.float64:
+                    continue
                 x1, x2, th, al, gb = _inputs(torch, rng, n1, n2, d, B, dt, kt,
                                              same)
                 got = ca.kern_grad(kt, x1, x2, th, al)
@@ -208,10 +232,11 @@ def _fit(GaussianProcess, x, f, g, kernel_type="SqExp", wellcond="precon",
     return gp
 
 
-def _path(torch, ca, name, fn):
+def _path(torch, ca, name, fn, need=("K1", "K2")):
     """Drive one path with the launch counts set to 0 just before it and read
-    just after; fails unless both K1 and K2 launched in it.  Returns fn's
-    result, the path's wall seconds and its counts."""
+    just after; fails unless each kernel in ``need`` launched in it (a
+    predict path runs no gradient, so no K2).  Returns fn's result, the
+    path's wall seconds and its counts."""
     torch.cuda.synchronize()
     ca.reset_launches()
     t0 = time.perf_counter()
@@ -221,7 +246,7 @@ def _path(torch, ca, name, fn):
     counts = {"K1": ca.kern_grad.launches, "K2": ca.kern_grad_vjp_theta.launches}
     log(f"[path] {name}: {secs:.3f} s, launches K1 {counts['K1']} "
         f"K2 {counts['K2']}")
-    if min(counts.values()) < 1:
+    if min(counts[k] for k in need) < 1:
         raise SystemExit(f"a kernel of the path '{name}' never launched")
     return res, secs, counts
 
@@ -437,6 +462,468 @@ def phase_constrained(torch, ca, GaussianProcess, rosenbrock):
     return out
 
 
+# the JAX facade tests' conditioning for the iterative solver
+# (tests/test_facade_iterative.py:34): diagonal-preconditioned CG converges
+# at cond_max_target 1e6, not at the dense default 1e10
+ITER_COND = dict(cond_max_target=1e6, cond_max=1e6)
+# the CG cap of the predict checks: at the default iter_max_cg (1024) CG
+# stops short of iter_cg_tol at the fitted theta (PERF.md); the cap
+# only bounds the loop, which ends once every column has converged
+PREDICT_MAX_CG = 8192
+# the default-cap predict at the BO size (CG stopped at 1024 iterations)
+# against the dense one, in multiples of ITER_PRED_TOL for mu, sig, dmu,
+# dsig.  A capped CG gives round-off's answer, which moves from run to run
+# and between the two packages: the largest excesses measured, on the card
+# and for both packages on the CPU, are 2948, 24.5, 35723 and 478 (PERF.md
+# section 6; tests/test_torch_iterative.py run as a script).  Ten times
+# those, so that a default path gone worse by an order of magnitude fails.
+DEFAULT_CAP_EXCESS = (3e4, 3e2, 4e5, 5e3)
+MATVEC_TOL = {  # max |KernMatvecFn - plain| / max |plain|, on the card
+    # forward: K1's few ulp of max|K|, then a product over 2211 terms in the
+    # same order (the f32 bound is K1's 2e-6 grown by that sum)
+    ("forward", "float64"): 1e-12, ("forward", "float32"): 1e-4,
+    # theta gradient: K2's tolerances (a sum of (1+d)^2 n1 n2 terms per tile)
+    ("theta", "float64"): 1e-10, ("theta", "float32"): 1e-3,
+}
+
+
+class CgLog:
+    """Records each mbcg call made inside the block: (right-hand sides,
+    iterations, largest final relative residual).  Reading them back costs
+    one sync per solve."""
+
+    def __init__(self, iterative):
+        self.it, self.calls = iterative, []
+
+    def __enter__(self):
+        self.orig = orig = self.it.mbcg
+
+        def record(*a, **kw):
+            res = orig(*a, **kw)
+            self.calls.append((res.X.shape[1], int(res.n_iter),
+                               float(res.residnorm.max())))
+            return res
+        self.it.mbcg = record
+        return self
+
+    def __exit__(self, *exc):
+        self.it.mbcg = self.orig
+
+    def text(self):
+        return ", ".join(f"{m} rhs: {k} it, resid {r:.2e}"
+                         for m, k, r in self.calls)
+
+
+def _masked_problem(torch, tgp, rng, n, d, kt, dt):
+    """A noisy partial-gradient dataset on the card (every third point
+    without gradients) and its hyperparameters."""
+    bvec = np.arange(n) % 3 != 1
+    x = rng.uniform(-2, 2, (n, d))
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dt, device="cuda")
+    spec = tgp.make_data_spec(d, True, n, std_fval=np.full(n, 0.05),
+                              std_grad=np.full((int(bvec.sum()), d), 0.05),
+                              bvec_use_grad=bvec)
+    data = tgp.GpData(x=t(x), fval=t(rng.standard_normal(n)),
+                      std_fval=t(np.full(n, 0.05)),
+                      grad=t(rng.standard_normal((int(bvec.sum()), d))),
+                      std_grad=t(np.full((int(bvec.sum()), d), 0.05)))
+    cfg = tgp.GpConfig(dim=d, kernel_type=kt,
+                       dtype="float64" if dt == torch.float64 else "float32")
+    return cfg, spec, data
+
+
+def phase_matvec_check(torch, ca, it, tli, tgp):
+    """KernMatvecFn (K1 per row tile + product; K2 per tile in the theta
+    backward) against the plain kern_matvec on the same card tensors:
+    forward and the theta gradient of sum(G * K(theta) V), 3 families
+    (RatQu at alpha 1.7) x f64/f32, n_eval=201 in row tiles of 64 (a ragged
+    last tile), d=10; the full layout alone (also as one tile of 256, the
+    BO size's case), then the masked partial-gradient layout with its
+    noise and eta extras.  Also checks one K1 launch per tile forward and
+    one K2 per tile backward.  Returns
+    the f64 SqExp full-layout errors."""
+    rng = np.random.default_rng(2)
+    n, d, rb = 201, 10, 64
+    n_tiles = -(-n // rb)
+    N = n * (1 + d)
+    worst, ok = {}, True
+    for kt in ("SqExp", "Ma5f2", "RatQu"):
+        for dt in (torch.float64, torch.float32):
+            dname = str(dt).split(".")[-1]
+            cfg, spec, data = _masked_problem(torch, tgp, rng, n, d, kt, dt)
+            x = data.x
+            th0 = torch.as_tensor(10.0 ** rng.uniform(-2, 0, d), dtype=dt,
+                                  device="cuda")
+            al = (torch.tensor(1.7, dtype=dt, device="cuda")
+                  if kt == "RatQu" else None)
+            V = torch.as_tensor(rng.standard_normal((N, 3)), dtype=dt,
+                                device="cuda")
+            G = torch.as_tensor(rng.standard_normal((N, 3)), dtype=dt,
+                                device="cuda")
+            pieces = tli._iter_setup(cfg, spec, data, 1e-3, rb)
+            m = pieces.mask[:, None]
+
+            def hp(t):
+                return tgp.Hypers(theta=t, kernel=al,
+                                  varK=torch.tensor(2.0, dtype=dt,
+                                                    device="cuda"))
+            layouts = {  # name: (matvec, its plain version, K1/K2 launches)
+                "full": (lambda t: it.kern_matvec(kt, x, t, al, V,
+                                                  row_block=rb),
+                         lambda t: it.kern_matvec_plain(kt, x, t, al, V, rb),
+                         n_tiles),
+                "1-tile": (lambda t: it.kern_matvec(kt, x, t, al, V,
+                                                    row_block=256),
+                           lambda t: it.kern_matvec_plain(kt, x, t, al, V,
+                                                          256), 1),
+                "masked": (lambda t: pieces.mv_hp(hp(t), V),
+                           lambda t: m * (it.kern_matvec_plain(
+                               kt, x, t, al, m * V, rb)
+                               + pieces.extra_hp(hp(t))[:, None] * m * V)
+                           + (1.0 - m) * V, n_tiles),
+            }
+            for layout, (mv, plain, launches) in layouts.items():
+                torch.cuda.synchronize()
+                ca.reset_launches()
+                t = th0.clone().requires_grad_(True)
+                got = mv(t)
+                k1 = ca.kern_grad.launches
+                g_got, = torch.autograd.grad((G * got).sum(), t)
+                got, want = got.detach(), None
+                torch.cuda.synchronize()
+                k2 = ca.kern_grad_vjp_theta.launches
+                tp = th0.clone().requires_grad_(True)
+                want = plain(tp)
+                g_want, = torch.autograd.grad((G * want).sum(), tp)
+                want = want.detach()
+                errs = {
+                    "forward": float((got - want).abs().max()
+                                     / want.abs().max()),
+                    "theta": float((g_got - g_want).abs().max()
+                                   / g_want.abs().max())}
+                good = (all(errs[k] <= MATVEC_TOL[(k, dname)] for k in errs)
+                        and k1 == launches and k2 == launches)
+                ok &= good
+                if (kt, dname, layout) == ("SqExp", "float64", "full"):
+                    worst = dict(errs, max_abs=float((got - want).abs().max()))
+                log(f"[matvec] {kt:5s} {dname} {layout:6s} n_eval={n} d={d} "
+                    f"row_block={rb}: forward rel {errs['forward']:.2e} "
+                    f"(tol {MATVEC_TOL[('forward', dname)]:.0e}), theta "
+                    f"rel {errs['theta']:.2e} (tol "
+                    f"{MATVEC_TOL[('theta', dname)]:.0e}), K1 {k1} K2 {k2} "
+                    f"launches ({launches} tiles) {'ok' if good else 'FAIL'}"
+                    + (" [TF32 off]" if dt == torch.float32 else ""))
+    # the CG loop's vector update as a CUDA-graph replay against the eager
+    # update, on the masked f64 SqExp system at this size: same kernels on
+    # the same buffers, so the same bits
+    cfg, spec, data = _masked_problem(torch, tgp, rng, n, d, "SqExp",
+                                      torch.float64)
+    hp = tgp.Hypers(theta=torch.full((d,), 0.05, dtype=torch.float64,
+                                     device="cuda"),
+                    varK=torch.tensor(2.0, dtype=torch.float64, device="cuda"))
+    pieces = tli._iter_setup(cfg, spec, data, 1e-3, rb)
+    dg = 1.0 / pieces.diag_hp(hp)
+    B = torch.as_tensor(rng.standard_normal((N, 17)), device="cuda")
+    runs = {}
+    for graph in (False, True, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = it.mbcg(lambda V: pieces.mv_hp(hp, V), B, max_iters=1024,
+                      tol=1e-10, M_inv_diag=dg, graph=graph)
+        k = int(res.n_iter)
+        runs[graph] = (res, k, (time.perf_counter() - t0) / k * 1e3)
+    (r_e, k_e, ms_e), (r_g, k_g, ms_g) = runs[False], runs[True]
+    same = (k_e == k_g and torch.equal(r_e.X, r_g.X)
+            and torch.equal(r_e.alphas, r_g.alphas)
+            and torch.equal(r_e.betas, r_g.betas))
+    log(f"[matvec] CG, 17 rhs, masked f64 n_eval={n} d={d}: {k_g} "
+        f"iterations, residual {float(r_g.residnorm.max()):.2e}; graphed "
+        f"update {ms_g:.4f} ms per iteration against eager {ms_e:.4f} ms "
+        f"(host wall): {'bitwise equal' if same else 'DIFFER'}")
+    if not (ok and same):
+        raise SystemExit("matrix-free matvec / CG check failed")
+    return dict(worst, cg_ms_per_iter={"graph": ms_g, "eager": ms_e},
+                cg_iters=k_g)
+
+
+def phase_iterative(torch, ca, it, GaussianProcess, rosenbrock):
+    """[iterative] at the BO size: a facade fit with solver='iterative'
+    (d=10, n_eval=200, SqExp, f64, ITER_COND, default iter_* options), the
+    dense port fit of the same data (the dense -ln L at the iterative
+    hyperparameters within max(2, 0.02 |f|) of the dense optimum, the JAX
+    criterion of tests/test_facade_iterative.py:94), then eval_model with
+    gradients at 128 points against the dense facade at the same
+    hyperparameters: the fit's own model (CG capped at the default 1024,
+    held to DEFAULT_CAP_EXCESS times the tolerances), then the model set
+    up again at the fit's theta with CG run to its tolerance (held to
+    tests/test_facade_iterative.py:69-72's tolerances, every solve
+    converged)."""
+    d, n = 10, 200
+    x, f, g, xt, ft, _ = _rosen_problem(rosenbrock, n, d)
+
+    def fit_iter():
+        t0 = time.perf_counter()
+        gp = _fit(GaussianProcess, x, f, g, solver="iterative", **ITER_COND)
+        torch.cuda.synchronize()
+        return gp, time.perf_counter() - t0
+
+    (gp_i, t_fit), _, c_fit = _path(
+        torch, ca, "[iterative] d=10 n_eval=200 fit", fit_iter)
+    info = gp_i.optz_infos[0]
+    fit_cfg = gp_i.cfg
+    theta = gp_i.hp_vals.theta.cpu().numpy()
+    log(f"[iterative] fit d={d} n_eval={n} f64 cond_max_target 1e6: "
+        f"{t_fit:.3f} s, L-BFGS iterations {info['hp_optz_iter_max']:.0f} "
+        f"(2 starts, mean {info['hp_optz_iter_mean']:.1f}), objective "
+        f"evaluations {info['optz_n_val']}, CG at the optimum "
+        f"{info['iter_cg_iters']} iterations, residual "
+        f"{info['iter_cg_resid']:.2e}, K1 {c_fit['K1']} K2 {c_fit['K2']} "
+        f"launches ({c_fit['K1'] / info['optz_n_val']:.0f} K1 per objective);"
+        f" the host reads CG convergence every {it.CHECK_EVERY} iterations")
+
+    t0 = time.perf_counter()
+    gp_d = _fit(GaussianProcess, x, f, g, **ITER_COND)
+    t_dense = time.perf_counter() - t0
+    f_d = -float(gp_d.calc_lkd_all(gp_d.hp_vals)[0].ln_lkd)
+    f_i = -float(gp_d.calc_lkd_all(gp_i.hp_vals)[0].ln_lkd)
+    margin = max(2.0, 0.02 * abs(f_d))
+    fit_ok = bool(np.isfinite(f_i) and f_i <= f_d + margin)
+    log(f"[iterative] dense -lnL at the iterative theta {f_i:.10g} against "
+        f"the dense fit's optimum {f_d:.10g} (dense fit {t_dense:.3f} s): "
+        f"excess {f_i - f_d:.4g} <= {margin:.4g} {'ok' if fit_ok else 'FAIL'}")
+
+    log(f"[iterative] theta {np.array2string(theta, precision=6)}")
+    gp_s = GaussianProcess(d, True, "SqExp", "precon", **ITER_COND)
+    gp_s.set_data(x, f, np.zeros(n), g, np.zeros((n, d)))
+    gp_s.set_custom_hp(theta=theta)
+    gp_s.set_hpara("current", 0)
+    pred_d = gp_s.eval_model(xt, calc_grad=True)[:4]
+
+    # the fitted model as the fit left it (iter_max_cg 1024), then set up
+    # again at the same theta with the cap raised so CG reaches its tolerance
+    with CgLog(it) as cg_default:
+        pred_1024, t_1024, _ = _path(
+            torch, ca, "[iterative] eval_model 128 points, fit's model",
+            lambda: gp_i.eval_model(xt, calc_grad=True)[:4], need=("K1",))
+    state = gp_i._eval_state
+    cap_ok, cap_err = _compare(pred_1024, pred_d, ITER_PRED_TOL,
+                               DEFAULT_CAP_EXCESS)
+    log(f"[iterative] at iter_max_cg 1024: setup CG {int(state.cg_iters)} "
+        f"iterations, residual {float(state.cg_resid):.2e}; predict CG "
+        f"{cg_default.text()}; vs dense: {cap_err} "
+        f"{'ok' if cap_ok else 'FAIL'}")
+
+    def predict_converged():
+        gp_i.iter_max_cg = PREDICT_MAX_CG
+        gp_i.set_custom_hp(theta=theta)
+        gp_i.set_hpara("current", 0)
+        return gp_i.eval_model(xt, calc_grad=True)[:4]
+    with CgLog(it) as cg_pred:
+        pred_i, t_pred, c_pred = _path(
+            torch, ca, f"[iterative] closed form + setup + eval_model 128 "
+            f"points, iter_max_cg {PREDICT_MAX_CG}", predict_converged,
+            need=("K1",))
+    pred_ok, pred_err = _compare(pred_i, pred_d, ITER_PRED_TOL)
+    converged = all(r < gp_i.cfg.iter_cg_tol for _, _, r in cg_pred.calls)
+    log(f"[iterative] iter_max_cg {PREDICT_MAX_CG}: CG {cg_pred.text()} "
+        f"({t_pred:.3f} s); vs the dense facade at the same theta: "
+        f"{pred_err} {'ok' if pred_ok else 'FAIL'}; converged {converged}")
+    if not (fit_ok and pred_ok and cap_ok and converged):
+        raise SystemExit("[iterative] path fails the dense criterion or "
+                         "its CG did not converge")
+    return dict(fit_cfg=fit_cfg, fit_s=t_fit, dense_fit_s=t_dense,
+                lbfgs_iters=info[
+        "hp_optz_iter_max"], objective_evals=info["optz_n_val"],
+        cg_iters=info["iter_cg_iters"], cg_resid=info["iter_cg_resid"],
+        fit_launches=c_fit, predict_launches=c_pred, predict_s=t_pred,
+        cg_predict=cg_pred.calls, cg_predict_1024=cg_default.calls,
+        neg_lnL_dense_at_iter=f_i, neg_lnL_dense_opt=f_d,
+        theta=theta.tolist(), gp=gp_i)
+
+
+# mu, sig, dmu, dsig: (rtol, atol) of the JAX facade's iterative-vs-dense
+# test (tests/test_facade_iterative.py:69-72) and of its large-n test
+# (:234-235, mu and sig only)
+ITER_PRED_TOL = ((1e-7, 1e-9), (1e-5, 1e-9), (1e-6, 1e-7), (1e-4, 1e-7))
+LARGE_PRED_TOL = ((1e-6, 1e-8), (1e-4, 1e-8))
+
+
+def _compare(got, want, tols, limits=(1.0,) * 4):
+    """allclose of each pair at its (rtol, atol), the excess held to its
+    limit (1: allclose itself); returns (ok, text)."""
+    ok, parts = True, []
+    for name, a, b, (rtol, atol), lim in zip(
+            ("mu", "sig", "dmu", "dsig"), got, want, tols, limits):
+        excess = float(np.max(np.abs(a - b) / (atol + rtol * np.abs(b))))
+        ok &= excess <= lim
+        parts.append(f"{name} max|d| {np.max(np.abs(a - b)):.2e} "
+                     f"({excess:.2f} of rtol {rtol:.0e} atol {atol:.0e}"
+                     + ("" if lim == 1.0 else f", limit {lim:.0e}") + ")")
+    return ok, "; ".join(parts)
+
+
+def phase_iterative_large(torch, ca, it, tli, GaussianProcess, rosenbrock,
+                          theta):
+    """[iterative-large]: d=10, n_eval=2000 (N = 22 000), f64, ITER_COND,
+    at the BO-size fit's theta (a fit at this size is cut: each objective
+    sweep would take minutes).  set_custom_hp -> set_hpara('current') ->
+    eval_model with gradients at 128 points (CG capped at PREDICT_MAX_CG)
+    against the dense facade at the same theta; one timed
+    neg_mll_iterative_and_grad with the default options; CG iterations
+    and residual of each solve; K1/K2 launches; peak device memory of the
+    iterative and of the dense predict."""
+    from gpgradpy_torch.fit.iterative_driver import iter_kw
+    d, n = 10, 2000
+    x, f, g, xt, _, _ = _rosen_problem(rosenbrock, n, d, seed=2)
+
+    def make(solver):
+        gp = GaussianProcess(d, True, "SqExp", "precon", solver=solver,
+                             iter_max_cg=PREDICT_MAX_CG, **ITER_COND)
+        gp.set_data(x, f, np.zeros(n), g, np.zeros((n, d)))
+        gp.set_custom_hp(theta=theta)
+        gp.set_hpara("current", 0)
+        return gp
+
+    def predict(solver):
+        gp = make(solver)
+        return gp, gp.eval_model(xt, calc_grad=True)[:4]
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with CgLog(it) as cg_pred:
+        (gp_i, pred_i), t_i, c_i = _path(
+            torch, ca, "[iterative-large] setup + eval_model 128 points",
+            lambda: predict("iterative"), need=("K1",))
+    peak_i = torch.cuda.max_memory_allocated()
+    log(f"[iterative-large] n_eval={n} d={d} N={n * (d + 1)}: setup + "
+        f"predict {t_i:.3f} s, CG solves: {cg_pred.text()}")
+
+    # one objective as a fit runs it: the default iter_* options
+    cfg = gp_i.cfg.replace(iter_max_cg=1024)
+    z = it.rademacher(n * (d + 1), cfg.iter_n_probes, 1, torch.float64,
+                      "cuda")
+    hp = gp_i.hp_vals._replace(beta=None, varK=None)
+    with CgLog(it) as cg_obj:
+        (val, gth, lkd), t_obj, c_obj = _path(
+            torch, ca, "[iterative-large] one neg_mll_iterative_and_grad",
+            lambda: tli.neg_mll_iterative_and_grad(
+                cfg, gp_i.spec, gp_i.data, hp, float(gp_i._etaK), z,
+                **iter_kw(cfg)))
+    log(f"[iterative-large] one objective + gradient {t_obj:.3f} s: -lnL "
+        f"{float(val):.10g}, |grad| {float(gth.norm()):.4g}, CG solves: "
+        f"{cg_obj.text()}")
+    del gp_i, z, hp, gth
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, pred_d = predict("dense")
+    torch.cuda.synchronize()
+    t_d = time.perf_counter() - t0
+    peak_d = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    ok, err = _compare(pred_i[:2], pred_d[:2], LARGE_PRED_TOL)
+    converged = all(r < cfg.iter_cg_tol for _, _, r in cg_pred.calls)
+    log(f"[iterative-large] vs the dense facade (setup + predict {t_d:.3f} "
+        f"s): {err} {'ok' if ok else 'FAIL'}; every predict CG solve "
+        f"(iter_max_cg {PREDICT_MAX_CG}) converged: {converged}")
+    log(f"[iterative-large] peak device memory: iterative setup + predict "
+        f"{peak_i / 2 ** 30:.2f} GiB, dense setup + predict "
+        f"{peak_d / 2 ** 30:.2f} GiB")
+    if not (ok and converged):
+        raise SystemExit("[iterative-large] predict disagrees with dense or "
+                         "its CG did not converge")
+    return dict(predict_s=t_i, dense_predict_s=t_d, objective_s=t_obj,
+                predict_launches=c_i, objective_launches=c_obj,
+                cg_predict=cg_pred.calls, cg_objective=cg_obj.calls,
+                peak_gib={"iterative": peak_i / 2 ** 30,
+                          "dense": peak_d / 2 ** 30},
+                cg_converged=converged, neg_lnL=float(val))
+
+
+def profile_iter_objective(torch, it, tli, gp, cfg):
+    """One neg_mll_iterative_and_grad at the BO-size fit's optimum, with the
+    fit's options ``cfg``, under the profiler (after one warm run, whose CG
+    solves are printed): device time by layer and the idle share."""
+    from gpgradpy_torch.fit.iterative_driver import iter_kw
+    z = it.rademacher(gp.spec.n_eval * (1 + gp.spec.dim), cfg.iter_n_probes,
+                      1, torch.float64, "cuda")
+    hp = gp.hp_vals._replace(beta=None, varK=None)
+
+    def objective():
+        return tli.neg_mll_iterative_and_grad(cfg, gp.spec, gp.data, hp,
+                                              float(gp._etaK), z,
+                                              **iter_kw(cfg))
+    with CgLog(it) as cg:
+        objective()
+    log(f"[profile] iterative objective d=10 n_eval=200, CG solves: "
+        f"{cg.text()}")
+    return profile_fn(torch, "one iterative objective + gradient d=10 "
+                      "n_eval=200", objective, ITER_GROUPS)
+
+
+def phase_iterative_card_vs_cpu(torch, ca, GaussianProcess):
+    """Iterative fits on the card and on the CPU with the same seed, hence
+    the same probes (drawn on the CPU): 'precon' at d=2, n_eval=40 and the
+    rescale fixed-point loop ('rescale_origin') at n_eval=16.  -ln L agrees
+    to rtol 1e-6, the bound of the dense small fits above (the two runs'
+    sums differ in the last bits, CG and the L-BFGS carry that on).  At
+    cond_max_target 1e4, where CG takes ~150 iterations, not ~750.  On the
+    card's 'precon' model, eval_model_var and make_predict_fn are held to
+    eval_model (rtol 1e-12)."""
+    out = {}
+    for wellcond, n in (("precon", 40), ("rescale_origin", 16)):
+        rng = np.random.default_rng(0)
+        x = rng.uniform(-1.5, 1.5, (n, 2))
+        f = np.sum(x ** 2, axis=1) + 0.5 * np.sin(3.0 * x[:, 0]) * x[:, 1]
+        g = 2.0 * x
+        g[:, 0] += 1.5 * np.cos(3.0 * x[:, 0]) * x[:, 1]
+        g[:, 1] += 0.5 * np.sin(3.0 * x[:, 0])
+        xq = rng.uniform(-1.4, 1.4, (7, 2))
+        res = {}
+        for dev in ("cuda", "cpu"):
+            def fit():
+                t0 = time.perf_counter()
+                gp = _fit(GaussianProcess, x, f, g, wellcond=wellcond,
+                          device=dev, solver="iterative",
+                          cond_max_target=1e4, cond_max=1e4)
+                return gp, time.perf_counter() - t0
+            if dev == "cuda":
+                (gp, secs), _, _ = _path(
+                    torch, ca, f"[iterative] {wellcond} d=2 n_eval={n} card "
+                    f"fit", fit)
+                gp_card = gp
+            else:
+                gp, secs = fit()
+            res[dev] = (float(gp.history.ln_lkd[0]), secs, len(gp.optz_infos),
+                        sum(i["optz_n_val"] for i in gp.optz_infos))
+        rel = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+        good = rel <= 1e-6
+        log(f"[iterative] {wellcond} d=2 n_eval={n} fit, card vs CPU: lnL "
+            f"{res['cuda'][0]:.12g} vs {res['cpu'][0]:.12g}, rel {rel:.3e} "
+            f"(tol 1e-6), {res['cuda'][1]:.2f} s / {res['cpu'][1]:.2f} s, "
+            f"inner fits {res['cuda'][2]} / {res['cpu'][2]}, evaluations "
+            f"{res['cuda'][3]} / {res['cpu'][3]} {'ok' if good else 'FAIL'}")
+        if wellcond == "precon":
+            mu, sig, dmu, dsig = gp_card.eval_model(xq, calc_grad=True)[:4]
+            var, dvar, _ = gp_card.eval_model_var(xq, calc_grad=True)
+            served = gp_card.make_predict_fn(calc_grad=True)(xq)
+            pairs = [(var, sig ** 2), (dvar, 2.0 * sig[:, None] * dsig)] + [
+                (t.cpu().numpy(), a) for t, a in zip(served, (mu, sig, dmu,
+                                                              dsig))]
+            same = all(np.allclose(a, b, rtol=1e-12, atol=0) for a, b in pairs)
+            log(f"[iterative] card eval_model_var and make_predict_fn "
+                f"against eval_model: {'ok' if same else 'FAIL'}")
+            good &= same
+        if not good:
+            raise SystemExit(f"iterative card fit ({wellcond}) disagrees with "
+                             f"the CPU fit or its own predict")
+        out[wellcond] = dict(rel=rel, card_s=res["cuda"][1],
+                             cpu_s=res["cpu"][1])
+    return out
+
+
 def _time_ms(torch, fn, reps, flush):
     """Mean device time of fn over reps calls, L2 flushed before each."""
     fn()
@@ -495,6 +982,41 @@ def phase_times(torch, ca, KernGradFn):
                 f"{100 * row['bound_ms'] / FIRST_PORT_MS[(name, nb)]:.1f}%) | plain "
                 f"{plain_ms:.4f} ms | library call: none computes this function")
         del x1, x2, th, gb
+
+    # the iterative path's row tile: 256 points against n_eval=2000 (the
+    # [iterative-large] matvec launches 8 of these per CG iteration), and
+    # the tile's product with 17 (a fit's solves) and 128 (predict) columns
+    n1, n2 = 256, 2000
+    x1, x2, th, _, gb = _inputs(torch, rng, n1, n2, d, None, torch.float64,
+                                "SqExp", False)
+    A2 = (d + 1) ** 2
+    nbytes = A2 * n1 * n2 * 8 + ((n1 + n2) * d + d) * 8
+    for name, kern, plain, k in (
+            ("K1", lambda: ca.kern_grad("SqExp", x1, x2, th),
+             lambda: ca.kern_grad_plain("SqExp", x1, x2, th), 6),
+            ("K2", lambda: ca.kern_grad_vjp_theta("SqExp", x1, x2, th, None,
+                                                  gb),
+             lambda: ca.kern_grad_vjp_theta_plain("SqExp", x1, x2, th, None,
+                                                  gb), 12)):
+        ms = _time_ms(torch, kern, 10, flush)
+        plain_ms = _time_ms(torch, plain, 3, flush)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n1 * n2 * (3 * d + 12 + k * A2) / PEAK_FLOPS["float64"] * 1e3
+        rows[(name, "tile")] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log(f"[time] {name} SqExp f64 row tile n1={n1} n2={n2} d={d}: "
+            f"{ms:.4f} ms (bound {max(t_bytes, t_ops):.4f} ms, "
+            f"{100 * max(t_bytes, t_ops) / ms:.1f}% of bound) | plain "
+            f"{plain_ms:.4f} ms")
+    Kt = ca.kern_grad("SqExp", x1, x2, th)
+    for m in (17, 128):
+        V = torch.as_tensor(rng.standard_normal((Kt.shape[1], m)),
+                            device="cuda")
+        ctx[f"tile_matmul_{m}_ms"] = _time_ms(torch, lambda: Kt @ V, 10, flush)
+        log(f"[time] context: the row tile @ V ({m} columns), torch.matmul "
+            f"f64: {ctx[f'tile_matmul_{m}_ms']:.4f} ms")
+    del x1, x2, th, gb, Kt, V
 
     # what one PyTorch call takes to write (fill_) and to read (sum) as many
     # bytes as the kernels move: context for the bound, not a library
@@ -565,18 +1087,36 @@ GROUPS = (  # kernel-name keywords -> layer, for the fit's time breakdown
 )
 
 
+ITER_GROUPS = (  # the same for one iterative objective
+    ("K1 covariance row tiles", ("kern_grad_kernel",)),
+    ("K2 theta-cotangent", ("kern_vjp_theta",)),
+    ("K tile x V products (gemm)", ("gemm", "gemv", "cutlass", "dot")),
+    ("SLQ tridiagonal eigh", ("syevd", "syev", "sytrd", "stedc", "orgtr",
+                              "ormtr", "steqr", "sterf", "latrd", "larf",
+                              "syevj")),
+)
+
+
 def phase_profile(torch, GaussianProcess, rosenbrock, wellcond="precon"):
-    """One warm d=10 fit of the given method under torch.profiler: device
-    time by layer (GROUPS) and by kernel, and the device's busy share of
-    that same fit's wall time.  Returns {device_ms, wall_ms, idle_share,
-    layers_ms}, or None where the profiler saw no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """One warm d=10 fit of the given method under torch.profiler (see
+    profile_fn)."""
     d, n = 10, 200
     x, f, g, _, _, _ = _rosen_problem(rosenbrock, n, d)
+    return profile_fn(torch, f"warm {wellcond} fit d=10 n_eval=200",
+                      lambda: _fit(GaussianProcess, x, f, g,
+                                   wellcond=wellcond), GROUPS)
+
+
+def profile_fn(torch, label, fn, groups):
+    """fn() under torch.profiler: device time by layer (groups) and by
+    kernel, and the device's busy share of the same run's wall time.
+    Returns {device_ms, wall_ms, idle_share, layers_ms}, or None where the
+    profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _fit(GaussianProcess, x, f, g, wellcond=wellcond)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies); the CPU-side aten ops also
@@ -586,16 +1126,16 @@ def phase_profile(torch, GaussianProcess, rosenbrock, wellcond="precon"):
               and "Buffer Flush" not in e.key]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     if not events:
-        log(f"[profile] {wellcond}: the profiler recorded no device time: "
+        log(f"[profile] {label}: the profiler recorded no device time: "
             f"not measured")
         return None
-    log(f"[profile] warm {wellcond} fit d=10 n_eval=200 under the profiler: "
+    log(f"[profile] {label} under the profiler: "
         f"wall {wall_ms:.1f} ms, device busy {dev_ms:.1f} ms "
         f"({100 * dev_ms / wall_ms:.1f}%), idle {100 * (1 - dev_ms / wall_ms):.1f}%")
-    grouped = {name: 0.0 for name, _ in GROUPS}
+    grouped = {name: 0.0 for name, _ in groups}
     grouped["other device work"] = 0.0
     for e in events:
-        key = next((name for name, kws in GROUPS
+        key = next((name for name, kws in groups
                     if any(k in e.key.lower() for k in kws)), "other device work")
         grouped[key] += e.self_device_time_total / 1e3
     for name, ms in sorted(grouped.items(), key=lambda kv: -kv[1]):
@@ -614,8 +1154,11 @@ def main():
         return 2
     from gpgradpy_torch import GaussianProcess
     from gpgradpy_torch.bo.problems import rosenbrock
+    import gpgradpy_torch as tgp
+    from gpgradpy_torch.model import likelihood_iter as tli
     from gpgradpy_torch.model.assembly import KernGradFn
     from gpgradpy_torch.ops import cuda_assembly as ca
+    from gpgradpy_torch.ops import iterative as it
 
     t_start = time.perf_counter()
     phase_s = {}
@@ -634,6 +1177,16 @@ def main():
                      rosenbrock)
     cons = phase("constrained", phase_constrained, torch, ca,
                  GaussianProcess, rosenbrock)
+    mv_err = phase("matvec check", phase_matvec_check, torch, ca, it, tli,
+                   tgp)
+    itr = phase("iterative", phase_iterative, torch, ca, it, GaussianProcess,
+                rosenbrock)
+    prof_iter = phase("profile iterative objective", profile_iter_objective,
+                      torch, it, tli, itr.pop("gp"), itr.pop("fit_cfg"))
+    large = phase("iterative-large", phase_iterative_large, torch, ca, it,
+                  tli, GaussianProcess, rosenbrock, np.asarray(itr["theta"]))
+    cvc = phase("iterative card vs cpu", phase_iterative_card_vs_cpu, torch,
+                ca, GaussianProcess)
     rows, ctx = phase("kernel times", phase_times, torch, ca, KernGradFn)
     walls = phase("fit repeats", phase_fit_repeats, torch, GaussianProcess,
                   rosenbrock)
@@ -663,11 +1216,19 @@ def main():
                                                          "bound_ms")}
                       for (k, b), r in rows.items()},
         "cholesky_ms": ctx["chol_ms"],
+        "row_tile_matmul_ms": {k: v for k, v in ctx.items()
+                               if k.startswith("tile_matmul")},
         "same_bytes_one_torch_call_ms": {k: v for k, v in ctx.items()
                                          if k.startswith(("fill_", "sum_"))},
         "constrained_d10": cons,
+        "matvec_check_f64_sqexp": mv_err,
+        "iterative_d10": itr,
+        "iterative_large_d10_n2000": large,
+        "iterative_card_vs_cpu": cvc,
         "phase_s": phase_s,
     }
+    if prof_iter is not None:
+        summary["profiled_iterative_objective"] = prof_iter
     if prof is not None:
         summary["profiled_fit"] = {k: prof[k] for k in (
             "device_ms", "wall_ms", "idle_share")}

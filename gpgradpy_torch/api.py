@@ -1,12 +1,15 @@
 """Stateful ``GaussianProcess`` facade over the functional core
-(counterpart of ``gpgradpy_tpu/api.py``, dense solver).
+(counterpart of ``gpgradpy_tpu/api.py``, dense and iterative solvers).
 
 Same constructor, option surface (constructor kwargs and mutable
 attributes) and methods as the JAX package's facade.  'precon' fits with
 the batched L-BFGS; every other conditioning method ('base', the
 rescaling methods) fits with the scipy driver under the condition-number
 constraint, the rescaling methods in their scaled frame and, for
-'rescale_*', inside the rescale fixed-point loop.  The model lives on
+'rescale_*', inside the rescale fixed-point loop.  With
+``solver="iterative"`` every method fits and predicts through the
+matrix-free CG + SLQ likelihood instead (no condition number, no
+Hessians).  The model lives on
 one torch device: ``device="cuda"`` (the default) or ``device="cpu"``.
 Without a card the facade raises unless the CPU is asked for; it never
 moves to the CPU by itself.
@@ -23,9 +26,10 @@ import torch
 
 from . import convert
 from .config import GpConfig
-from .fit import multistart, scipy_driver
+from .fit import iterative_driver, multistart, scipy_driver
 from .fit.history import FitHistory
-from .model import conditioning, likelihood, predict, rescale
+from .model import (conditioning, likelihood, likelihood_iter, predict,
+                    predict_iter, rescale)
 from .ops import rtensor
 from .types import (DataSpec, GpData, HpInfo, Hypers, hp_vec_to_hypers,
                     hypers_to_hp_vec, make_data_spec)
@@ -36,6 +40,9 @@ _CFG_FIELDS = {f.name for f in dataclasses.fields(GpConfig)}
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+_NO_HESS = "iterative predict: Hessians not supported (use solver='dense')"
 
 
 class GaussianProcess:
@@ -181,7 +188,8 @@ class GaussianProcess:
         self.bvec_use_grad = bvec_use_grad
 
         n_pad = 0
-        if cfg.pad_n_eval_multiple > 1:
+        # the iterative path keeps its own full layout: no shape bucketing
+        if cfg.pad_n_eval_multiple > 1 and cfg.solver != "iterative":
             n_pad = (-n_eval) % cfg.pad_n_eval_multiple
         self.spec = make_data_spec(cfg.dim, cfg.use_grad, n_eval,
                                    std_fval=self._std_fval_in,
@@ -379,6 +387,13 @@ class GaussianProcess:
 
     def _run_fit(self, i_optz, x0_override=None):
         cfg = self.cfg
+        if cfg.solver == "iterative":
+            fit = iterative_driver.fit_map_iterative(
+                cfg, self.spec, self.hp_info_optz_lkd, self.data,
+                float(self._etaK), history=self.history, i_optz=i_optz,
+                seed=self._fit_seed, x0_override=x0_override)
+            self.optz_infos.append(fit.info)
+            return fit
         use_scipy = (cfg.optz_mtd in ("slsqp", "SLSQP", "trust-constr")
                      or cfg.b_use_cond_cstr)
         fitter = scipy_driver.fit_map_scipy if use_scipy else multistart.fit_map
@@ -478,14 +493,21 @@ class GaussianProcess:
     def _closed_form(self, hp_vals: Hypers) -> Hypers:
         t0 = time.time()
         with torch.no_grad():
-            lkd = likelihood.calc_lkd(self.cfg, self.spec, self.data, hp_vals,
-                                      float(self._etaK))
+            if self.cfg.solver == "iterative":
+                out = likelihood_iter.closed_form_iterative(
+                    self.cfg, self.spec, self.data, hp_vals,
+                    float(self._etaK), **iterative_driver.iter_kw(self.cfg))
+            else:
+                lkd = likelihood.calc_lkd(self.cfg, self.spec, self.data,
+                                          hp_vals, float(self._etaK))
+                varK = (hp_vals.varK if self.spec.b_has_noisy_data
+                        else lkd.varK)
+                out = hp_vals._replace(beta=lkd.beta, varK=varK)
         _sync(self.device)
-        # one assembly + factorization at the final hp
+        # one assembly + factorization (or one batched CG) at the final hp
         self._time_chofac_last = time.time() - t0
         self._time_chofac += self._time_chofac_last
-        varK = hp_vals.varK if self.spec.b_has_noisy_data else lkd.varK
-        return hp_vals._replace(beta=lkd.beta, varK=varK)
+        return out
 
     def set_hpara(self, method2set_hp: str, i_optz: int, hp_vals=None,
                   calc_cond: bool = False):
@@ -513,6 +535,15 @@ class GaussianProcess:
     def setup_eval_model(self, calc_cond: bool = False):
         assert self.hp_vals is not None, "hyperparameters not set"
         self._hp_vals_model_setup = self.hp_vals
+        if self.cfg.solver == "iterative":
+            # no factorization to probe for a condition number; the CG
+            # residual and iterations live on the state instead
+            with torch.no_grad():
+                self._eval_state = predict_iter.setup_eval_iterative(
+                    self.cfg, self.spec, self.data, self.hp_vals,
+                    float(self._etaK), **iterative_driver.iter_kw(self.cfg))
+            self.condK = None
+            return
         with torch.no_grad():
             self._eval_state = predict.setup_eval(
                 self.cfg, self.spec, self.data, self.hp_vals,
@@ -535,6 +566,15 @@ class GaussianProcess:
             xq = self.DataScl.x_init_2_scl(xq)
         return self._tensor(xq)
 
+    def _eval_iterative(self, xq, calc_grad):
+        """(mu, sig, dmudx, dsigdx) of the iterative solver at the
+        working-frame tensor xq."""
+        with torch.no_grad():
+            return predict_iter.eval_model_iterative(
+                self.cfg, self.spec, self.data, self._eval_state,
+                float(self._etaK), xq, calc_sig=True, calc_grad=calc_grad,
+                **iterative_driver.iter_kw(self.cfg))
+
     @staticmethod
     def _squeeze(vals, squeeze_nx):
         if squeeze_nx:
@@ -546,10 +586,16 @@ class GaussianProcess:
         if calc_hess:
             assert calc_grad, "calc_hess requires calc_grad"
         xq = self._query(x2model_in, squeeze_nx)
-        with torch.no_grad():
-            out = predict.eval_model(self.cfg, self.spec, self.data,
-                                     self._eval_state, xq,
-                                     calc_grad=calc_grad, calc_hess=calc_hess)
+        if self.cfg.solver == "iterative":
+            if calc_hess:
+                raise NotImplementedError(_NO_HESS)
+            out = (*self._eval_iterative(xq, calc_grad), None, None)
+        else:
+            with torch.no_grad():
+                out = predict.eval_model(self.cfg, self.spec, self.data,
+                                         self._eval_state, xq,
+                                         calc_grad=calc_grad,
+                                         calc_hess=calc_hess)
         out = [None if v is None else v.cpu().numpy() for v in out]
         if self.DataScl is not None:
             out = self.DataScl.obj_scl_2_init(*out)
@@ -561,11 +607,18 @@ class GaussianProcess:
         var_init = var_scl / obj_scale^2 with a 1/xvec_scale factor per
         x-derivative, as in the JAX package."""
         xq = self._query(x2model_in, squeeze_nx)
-        with torch.no_grad():
-            out = predict.eval_model_var(self.cfg, self.spec, self.data,
-                                         self._eval_state, xq,
-                                         calc_grad=calc_grad,
-                                         calc_hess=calc_hess)
+        if self.cfg.solver == "iterative":
+            if calc_hess:
+                raise NotImplementedError(_NO_HESS)
+            _, sig, _, dsig = self._eval_iterative(xq, calc_grad)
+            out = (sig ** 2, None if dsig is None else 2.0 * sig[:, None] * dsig,
+                   None)
+        else:
+            with torch.no_grad():
+                out = predict.eval_model_var(self.cfg, self.spec, self.data,
+                                             self._eval_state, xq,
+                                             calc_grad=calc_grad,
+                                             calc_hess=calc_hess)
         out = [None if v is None else v.cpu().numpy() for v in out]
         if self.DataScl is not None:
             s = self.DataScl
@@ -578,6 +631,45 @@ class GaussianProcess:
                 out[2] = out[2] * (np.outer(s.xvec_scale, s.xvec_scale)[None]
                                    / o2)
         return self._squeeze(out, squeeze_nx)
+
+    def make_predict_fn(self, calc_grad: bool = False,
+                        calc_hess: bool = False):
+        """Serving path: a callable ``xq -> (mu, sig, dmudx, dsigdx,
+        d2mudx2, d2sigdx2)`` (tensors on the model's device, None where not
+        computed) that closes over the device-resident state of the current
+        model, so a query costs no setup.  No rescaling frames (use
+        eval_model there), as in the JAX package."""
+        self._check_eval_ready()
+        if self.DataScl is not None:
+            raise ValueError("make_predict_fn: no rescaling frames")
+        cfg, spec, data, state = self.cfg, self.spec, self.data, self._eval_state
+        dtype, device, eta = self.dtype, self.device, float(self._etaK)
+
+        def query(xq):
+            return torch.atleast_2d(torch.as_tensor(xq, dtype=dtype,
+                                                    device=device))
+
+        if cfg.solver == "iterative":
+            if calc_hess:
+                raise NotImplementedError(_NO_HESS)
+            kw = iterative_driver.iter_kw(cfg)
+
+            def predict_i(xq):
+                with torch.no_grad():
+                    mu, sig, dmu, dsig = predict_iter.eval_model_iterative(
+                        cfg, spec, data, state, eta, query(xq), calc_sig=True,
+                        calc_grad=calc_grad, **kw)
+                return mu, sig, dmu, dsig, None, None
+
+            return predict_i
+
+        def predict_d(xq):
+            with torch.no_grad():
+                return predict.eval_model(cfg, spec, data, state, query(xq),
+                                          calc_grad=calc_grad,
+                                          calc_hess=calc_hess)
+
+        return predict_d
 
     # ------------------------------------------------------------------
     # frames / data access

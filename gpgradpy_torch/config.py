@@ -3,10 +3,11 @@
 A copy of ``gpgradpy_tpu.config.GpConfig`` (the JAX package's option
 surface) without ``use_pallas``: the covariance takes the hand-written CUDA
 kernels whenever its tensors lie on a CUDA device, with no switch.  The
-switches of features not ported yet (``solver``, ``polish_cond_target``,
-``n_refine_predict``) are accepted by the dataclass and refused by
-``check_ported`` with a pointer to the ROADMAP.md item that brings them;
-their tuning options come with that item.
+switches of features not ported yet (``solver="dense_dist"``,
+``iter_use_mesh``, ``polish_cond_target``, ``n_refine_predict``) are
+accepted by the dataclass and refused by ``check_ported`` with a pointer to
+the ROADMAP.md item that brings them; their tuning options come with that
+item.
 """
 
 from __future__ import annotations
@@ -102,8 +103,17 @@ class GpConfig:
     pad_n_eval_multiple: int = 0          # shape bucketing: pad n_eval up to a
                                           # multiple (padded points are masked)
 
-    # large-n solvers 'iterative' | 'dense_dist' are not ported
-    solver: str = "dense"                 # 'dense' | 'iterative' | 'dense_dist'
+    # --- large-n iterative solver (model/likelihood_iter.py) ---
+    solver: str = "dense"                 # 'dense' (Cholesky), 'iterative'
+                                          # (matrix-free CG + SLQ) or
+                                          # 'dense_dist' (not ported)
+    iter_n_probes: int = 16               # Hutchinson / SLQ probe vectors
+    iter_max_cg: int = 1024               # CG iteration cap (~sqrt(cond)
+                                          # with the diagonal preconditioner)
+    iter_cg_tol: float = 1e-10            # CG relative-residual tolerance
+    iter_row_block: int = 256             # covariance row-tile height (points)
+    iter_n_x0: int = 2                    # multistarts of the iterative fit
+    iter_use_mesh: bool = False           # sharded matvec (not ported)
 
     def __post_init__(self):
         assert self.kernel_type in KERNEL_TYPES, f"unknown kernel {self.kernel_type}"
@@ -115,15 +125,20 @@ class GpConfig:
             object.__setattr__(self, "wellcond_mtd", "base")
         assert self.solver in ("dense", "iterative", "dense_dist"), \
             f"unknown solver {self.solver}"
+        if self.solver == "iterative":
+            assert not self.polish_cond_target, (
+                "solver='iterative' does not combine with polish_cond_target "
+                "(a dense-factorization feature)")
         assert self.dtype in ("float64", "float32"), f"unknown dtype {self.dtype}"
         if self.wellcond_mtd == "rescale_eta_vary":
             object.__setattr__(self, "cond_eta_is_const", False)
 
     def check_ported(self):
         """Raise NotImplementedError for options this port does not run yet."""
-        if self.solver == "iterative":
+        if self.solver == "iterative" and self.iter_use_mesh:
             raise NotImplementedError(
-                "solver='iterative' comes with ROADMAP.md Queue 1 item 9")
+                "iter_use_mesh (the multi-device sharded matvec) comes with "
+                "ROADMAP.md Queue 1 item 12")
         if self.solver == "dense_dist":
             raise NotImplementedError(
                 "solver='dense_dist' comes with ROADMAP.md Queue 1 item 12")

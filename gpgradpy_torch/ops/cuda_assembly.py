@@ -43,6 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
+_max_dim = {}         # element size -> the kernels' largest d
 build_log = ""        # nvcc's output (incl. -Xptxas -v) of the last build
 build_seconds = 0.0   # wall time of the last nvcc run in this process
 
@@ -141,7 +142,10 @@ def _check_cuda_args(kernel_type, x1, x2, theta, extra=()):
         raise ValueError(f"shapes x1 {tuple(x1.shape)}, x2 {tuple(x2.shape)}, "
                          f"theta {tuple(theta.shape)} do not match")
     d = x1.shape[1]
-    max_d = _load().kern_max_dim(theta.element_size())
+    size = theta.element_size()
+    if size not in _max_dim:
+        _max_dim[size] = _load().kern_max_dim(size)
+    max_d = _max_dim[size]
     if not 1 <= d <= max_d:
         raise ValueError(f"dim {d} outside the kernels' range 1..{max_d}")
 

@@ -70,6 +70,14 @@ def _phi_rat_quad(W, alpha):
 PHI = {"SqExp": _phi_sq_exp, "Ma5f2": _phi_matern52, "RatQu": _phi_rat_quad}
 
 
+def theta2gamma(kernel_type: str, theta):
+    """sqrt of the grad-grad block diagonal of the correlation matrix,
+    sqrt(-2 phi'(0) theta) for each family."""
+    if kernel_type == "Ma5f2":
+        return torch.sqrt((5.0 / 3.0) * theta)
+    return torch.sqrt(2.0 * theta)
+
+
 def weighted_sqdist(R, theta):
     """W[..., i, j] = sum_d theta[..., d] R[d, i, j]**2."""
     return torch.einsum("...d,dij->...ij", theta, R * R)

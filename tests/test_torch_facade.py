@@ -4,7 +4,10 @@ the options not ported yet, 'base', float32, padding, history, and a
 package that imports nothing of JAX."""
 
 import ast
+import importlib
 import pathlib
+import pkgutil
+import re
 
 import numpy as np
 import pytest
@@ -69,7 +72,7 @@ def test_facade_needs_a_card_or_an_explicit_cpu():
 
 
 @pytest.mark.parametrize("option", [
-    dict(solver="iterative"), dict(solver="dense_dist"),
+    dict(solver="iterative", iter_use_mesh=True), dict(solver="dense_dist"),
     dict(polish_cond_target=1e10), dict(n_refine_predict=2)])
 def test_options_of_later_slices_raise(option):
     kw = dict(option)
@@ -138,6 +141,31 @@ def _imports(path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             yield node.module
+
+
+def test_port_never_turns_on_tf32():
+    """A float32 matmul on the card runs in full float32 unless TF32 is
+    turned on; no port file sets it (or lowers the float32 matmul
+    precision), and importing every module and running a float32
+    iterative predict (CG matvecs) leaves both switches as they were."""
+    files = sorted((ROOT / "gpgradpy_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+    pat = re.compile(r"allow_tf32\s*=\s*True|set_float32_matmul_precision")
+    assert [str(p) for p in files if pat.search(p.read_text())] == []
+    import gpgradpy_torch
+    for mod in pkgutil.walk_packages(gpgradpy_torch.__path__,
+                                     "gpgradpy_torch."):
+        importlib.import_module(mod.name)
+    x, f, g, xq = _data(n=8)
+    gp = GaussianProcess(2, True, device="cpu", dtype="float32",
+                         solver="iterative", cond_max_target=1e4,
+                         iter_max_cg=64)
+    gp.set_data(x, f, np.zeros(8), g, np.zeros((8, 2)))
+    gp.set_custom_hp(theta=np.array([1.0, 0.5]))
+    gp.set_hpara("current", 0)
+    assert gp.eval_model(xq)[0].dtype == np.float32
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
 
 
 def test_port_imports_nothing_of_jax():
