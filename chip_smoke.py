@@ -44,7 +44,17 @@ Phases, each printing its own lines; any failure exits non-zero:
      peak memories; iterative fits on the card against the CPU ('precon'
      and the rescale loop), with eval_model_var and make_predict_fn on the
      card held to eval_model;
-  7. times at the main path's shape with CUDA events: each kernel at B=1
+  7. hyperparameter inference over make_gp_logpost: '[nuts-d10]'
+     sample_posterior with 8 chains on the d=10, n_eval=200 fit (depth
+     cut to NUTS_D10): one batched leapfrog timed, the log posterior's
+     value and gradient on the card held to the CPU path, then samples
+     (finite, divergence share < 0.05, median log10 theta within 0.6 of
+     the MAP), R-hat, ESS, samples/s, peak memory and the idle share of
+     two transitions; '[nuts-256]' bench.py's 256-chain NUTS
+     configuration (samples/s, idle share); '[advi]' and
+     '[smc]' with the JAX defaults on the same target.  Each runs as a
+     path with its own launch counts (SMC: value only, K1);
+  8. times at the main path's shape with CUDA events: each kernel at B=1
      and B=41 beside its bound, its plain version and the first port's
      time, and at the iterative path's row tile (256 x 2000 points); for
      context, one PyTorch write (fill_) and read (sum) of as many bytes,
@@ -159,6 +169,11 @@ def phase_kernels(torch, ca):
         (40, 33, 33, None, False),   # d=33: 34 column blocks per row
         (201, 37, 5, 2, False),      # ragged, rectangular, rows not 16-byte
                                      # aligned (element-wise access), B=2
+        # the inference phases: a NUTS leapfrog of 8 chains at the main
+        # path's width ([nuts-d10]) and of 256 chains on bench.py's NUTS
+        # problem ([nuts-256])
+        (200, 200, 10, 8, True),
+        (32, 32, 2, 256, True),
         # the [iterative-large] matvec's row tiles (f64 only): 256 points
         # against n_eval=2000, and the ragged last tile of 208
         (256, 2000, 10, None, False),
@@ -924,6 +939,310 @@ def phase_iterative_card_vs_cpu(torch, ca, GaussianProcess):
     return out
 
 
+# ---------------------------------------------------------------------------
+# hyperparameter inference: NUTS, ADVI, SMC over make_gp_logpost
+# ---------------------------------------------------------------------------
+
+# the slice's NUTS run at full width (d=10, n_eval=200, f64, 8 chains, the
+# facade's default), with warmup, samples and tree depth cut so that the
+# phase stays within ~150 s on one H100: a leapfrog of 8 chains takes ~80
+# ms and a tree of depth 5 (31 leapfrogs) ~2.5 s (PERF.md section 6)
+NUTS_D10 = dict(n_chains=8, n_warmup=40, n_samples=20, max_depth=5, seed=0)
+# bench.py's NUTS configuration (bench.py:350-392) at its width, in float64
+# at cond_max_target 1e10 as bench.py runs it on the CPU.  bench.py times
+# a second run because its first one compiles; the port compiles nothing,
+# so it runs once
+NUTS_256 = dict(n_chains=256, n_warmup=64, n_samples=128, max_depth=6)
+SMALL_N, SMALL_D = 32, 2
+
+
+class StepLog:
+    """Inside the block, records the wall time (after a sync) at the end of
+    each nuts_step call, and each leapfrog's batch (the chains evaluated in
+    one lockstep leaf)."""
+
+    def __init__(self, torch, nuts):
+        self.torch, self.nuts = torch, nuts
+        self.t_end, self.rows = [], []
+
+    def __enter__(self):
+        self.orig = self.nuts.nuts_step, self.nuts._leapfrog
+        step, leapfrog = self.orig
+
+        def step_rec(*a, **kw):
+            out = step(*a, **kw)
+            self.torch.cuda.synchronize()
+            self.t_end.append(time.perf_counter())
+            return out
+
+        def leapfrog_rec(lg, inv_mass, *a):
+            self.rows.append(inv_mass.shape[0])
+            return leapfrog(lg, inv_mass, *a)
+        self.nuts.nuts_step, self.nuts._leapfrog = step_rec, leapfrog_rec
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.nuts.nuts_step, self.nuts._leapfrog = self.orig
+
+    def sampling_s(self, n_samples):
+        """Wall seconds of the last n_samples transitions."""
+        return self.t_end[-1] - self.t_end[-n_samples - 1]
+
+
+def _state_at(torch, nuts, lg, z, diag, seed):
+    """A NutsState of the adapted chains at z (the profiled transitions)."""
+    B = z.shape[0]
+    lp, g = lg(z)
+    return nuts.NutsState(
+        z=z, logp=lp, grad=g,
+        step=torch.as_tensor(diag["step_size"], device="cuda"),
+        inv_mass=torch.as_tensor(diag["inv_mass"], device="cuda"),
+        rng=nuts.Draws(seed, "cuda"), accept_prob=torch.zeros_like(lp),
+        diverging=torch.zeros(B, dtype=torch.bool, device="cuda"),
+        n_leapfrog=torch.zeros(B, dtype=torch.int64, device="cuda"))
+
+
+def _max_rel(a, b):
+    """max |a - b| / |b| over the entries (np.allclose's relative form)."""
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def phase_nuts_d10(torch, ca, GaussianProcess, rosenbrock):
+    """[nuts-d10]: sample_posterior on the d=10, n_eval=200 fit (SqExp,
+    precon, f64; N = 2200 covariance rows) with 8 chains at NUTS_D10.
+    Times one batched leapfrog (B=8) first; holds make_gp_logpost's value
+    and gradient at a batch of z on the card to the port's CPU path (rtol
+    1e-9 / 1e-6); then samples, and fails unless every sample is finite,
+    the divergence share over sampling is below 0.05 and the median log10
+    theta lies within 0.6 of the MAP in each dimension (the JAX criterion,
+    tests/test_api_extras.py:22-31)."""
+    from gpgradpy_torch.fit import multistart
+    from gpgradpy_torch.inference import diagnostics, nuts
+    from gpgradpy_torch.types import GpData
+    f64 = torch.float64
+    d, n = 10, 200
+    x, f, g, _, _, _ = _rosen_problem(rosenbrock, n, d)
+    gp = _fit(GaussianProcess, x, f, g)
+    cfg, spec, info = gp.cfg, gp.spec, gp.hp_info_optz_lkd
+    bounds = multistart.get_hp_bounds(cfg, info, gp.history, 0)
+    eta = float(gp._etaK)
+    args = (cfg, spec, info, gp.data, eta, bounds.box_lb, bounds.box_ub)
+    logpost, z_to_hp, hp_to_z = nuts.make_gp_logpost(*args)
+    lg = nuts.value_and_grad(logpost)
+    log_map = np.log10(gp.hp_vals.theta.cpu().numpy())
+    z_map = hp_to_z(torch.as_tensor(log_map, dtype=f64, device="cuda"))
+    B = NUTS_D10["n_chains"]
+    z8 = z_map + 0.02 * nuts.Draws(1, "cuda").normal((B, info.n_hp), f64)
+    r8 = torch.ones_like(z8)
+    step = torch.full((B,), 0.01, dtype=f64, device="cuda")
+    _, g8 = lg(z8)
+    ca.reset_launches()
+    reps = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        nuts._leapfrog(lg, torch.ones_like(z8), step, z8, r8, g8)
+    torch.cuda.synchronize()
+    lf_ms = (time.perf_counter() - t0) / reps * 1e3
+    log(f"[nuts-d10] one batched leapfrog (value + gradient of {B} chains, "
+        f"N = {(d + 1) * n}): {lf_ms:.2f} ms ({lf_ms / B:.2f} ms per chain);"
+        f" K1 {ca.kern_grad.launches} K2 {ca.kern_grad_vjp_theta.launches} "
+        f"launches in {reps} leapfrogs")
+
+    # the card against the port's CPU path at one batch of z
+    zb = z8[:2]
+    data_cpu = GpData(*(None if t is None else t.cpu() for t in gp.data))
+    logpost_cpu = nuts.make_gp_logpost(cfg, spec, info, data_cpu, eta,
+                                       bounds.box_lb, bounds.box_ub)[0]
+    v_c, g_c = lg(zb)
+    t0 = time.perf_counter()
+    v_h, g_h = nuts.value_and_grad(logpost_cpu)(zb.cpu())
+    t_cpu = time.perf_counter() - t0
+    rel_v = _max_rel(v_c.cpu(), v_h)
+    rel_g = _max_rel(g_c.cpu(), g_h)
+    lp_ok = rel_v <= 1e-9 and rel_g <= 1e-6
+    log(f"[nuts-d10] make_gp_logpost at {zb.shape[0]} z rows, card vs CPU "
+        f"path: value rel {rel_v:.3e} (tol 1e-9), gradient rel {rel_g:.3e} "
+        f"(tol 1e-6) {'ok' if lp_ok else 'FAIL'}; the CPU path took "
+        f"{t_cpu:.1f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    with StepLog(torch, nuts) as sl:
+        (samples, diag), secs, counts = _path(
+            torch, ca, f"[nuts-d10] sample_posterior {json.dumps(NUTS_D10)}",
+            lambda: gp.sample_posterior(**NUTS_D10))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    W, S = NUTS_D10["n_warmup"], NUTS_D10["n_samples"]
+    t_samp = sl.sampling_s(S)
+    rate = B * S / t_samp
+    lf = diag["n_leapfrog"]
+    rows = np.asarray(sl.rows)
+    log_s = np.log10(samples)
+    st = torch.as_tensor(log_s)
+    rhat = diagnostics.split_rhat(st).numpy()
+    ess = diagnostics.effective_sample_size(st).numpy()
+    div = float(np.mean(diag["diverging"]))
+    med_off = np.abs(np.median(log_s.reshape(-1, info.n_hp), 0) - log_map)
+    finite = bool(np.all(np.isfinite(samples)))
+    log(f"[nuts-d10] depth cut: n_warmup {W}, n_samples {S}, max_depth "
+        f"{NUTS_D10['max_depth']} (the facade's defaults: 400, 400, 8); "
+        f"{len(sl.t_end)} transitions in {secs:.3f} s, sampling phase "
+        f"{t_samp:.3f} s: {rate:.3f} samples/s")
+    log(f"[nuts-d10] n_leapfrog per transition over sampling: mean "
+        f"{lf.mean():.2f}, max {lf.max()}; lockstep leaves {rows.size} "
+        f"evaluating {rows.sum()} chain rows ({1e3 * secs / rows.size:.1f} "
+        f"ms per leaf over the run); divergence share {div:.4f}, mean accept "
+        f"{np.mean(diag['accept_prob']):.3f}")
+    log(f"[nuts-d10] step sizes {np.array2string(diag['step_size'], precision=4)}")
+    log(f"[nuts-d10] split R-hat {np.array2string(rhat, precision=3)}")
+    log(f"[nuts-d10] ESS {np.array2string(ess, precision=1)}")
+    log(f"[nuts-d10] |median log10 theta - MAP| "
+        f"{np.array2string(med_off, precision=3)} (limit 0.6); K1 "
+        f"{counts['K1']} K2 {counts['K2']} launches; peak memory "
+        f"{peak:.2f} GiB")
+    ok = (finite and div < 0.05 and bool(np.all(med_off < 0.6)) and lp_ok
+          and samples.shape == (B, S, info.n_hp))
+    if not ok:
+        raise SystemExit("[nuts-d10] failed: non-finite samples, divergences "
+                         "at 5% or more, a median away from the MAP, or the "
+                         "card's log posterior off the CPU path's")
+
+    z_last = hp_to_z(torch.as_tensor(log_s[:, -1], device="cuda"))
+    state = _state_at(torch, nuts, lg, z_last, diag, 2)
+
+    def transitions():
+        s = state
+        for _ in range(2):
+            s = nuts.nuts_step(lg, s, NUTS_D10["max_depth"])
+    prof = profile_fn(torch, "[nuts-d10] 2 adapted transitions", transitions,
+                      GROUPS)
+    return dict(ms_per_leapfrog_B8=lf_ms, samples_per_s=rate,
+                sampling_s=t_samp, run_s=secs, transitions=len(sl.t_end),
+                leaves=int(rows.size), chain_rows=int(rows.sum()),
+                mean_n_leapfrog=float(lf.mean()), divergence_share=div,
+                mean_accept=float(np.mean(diag["accept_prob"])),
+                step_size=diag["step_size"].tolist(), rhat=rhat.tolist(),
+                ess=ess.tolist(), median_offset=med_off.tolist(),
+                launches=counts, peak_gib=peak,
+                logpost_card_vs_cpu_rel=[rel_v, rel_g],
+                idle_share=None if prof is None else prof["idle_share"])
+
+
+def _small_logpost(torch, tgp, rosenbrock):
+    """bench.py's NUTS target (bench.py:355-374): Rosenbrock n=32, d=2,
+    SqExp precon, f64, calc_etaK, box [-4, 2], on the card."""
+    from gpgradpy_torch.inference import nuts
+    from gpgradpy_torch.model import conditioning
+    n, d = SMALL_N, SMALL_D
+    x, f, g, _, _, _ = _rosen_problem(rosenbrock, n, d)
+    cfg = tgp.GpConfig(dim=d, use_grad=True, kernel_type="SqExp",
+                       wellcond_mtd="precon", dtype="float64",
+                       cond_max_target=1e10)
+    spec = tgp.make_data_spec(d, True, n, std_fval=np.zeros(n),
+                              std_grad=np.zeros((n, d)))
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float64, device="cuda")
+    data = tgp.GpData(x=t(x), fval=t(f), std_fval=t(np.zeros(n)), grad=t(g),
+                      std_grad=t(np.zeros((n, d))))
+    info = tgp.HpInfo(dim=d)
+    lb, ub = np.full(info.n_hp, -4.0), np.full(info.n_hp, 2.0)
+    logpost, z_to_hp, _ = nuts.make_gp_logpost(
+        cfg, spec, info, data, conditioning.calc_etaK(cfg, n), lb, ub)
+    return logpost, z_to_hp, info.n_hp
+
+
+def phase_nuts_256(torch, ca, tgp, rosenbrock):
+    """[nuts-256]: bench.py's NUTS samples/s configuration (NUTS_256):
+    samples/s as bench.py counts it (chains x samples over the whole run)
+    and over the sampling phase, then the idle share of one adapted
+    transition."""
+    from gpgradpy_torch.inference import nuts
+    logpost, _, n_hp = _small_logpost(torch, tgp, rosenbrock)
+    B, S = NUTS_256["n_chains"], NUTS_256["n_samples"]
+    kw = {k: v for k, v in NUTS_256.items() if k != "n_chains"}
+    with StepLog(torch, nuts) as sl:
+        (zs, diag), secs, counts = _path(
+            torch, ca, "[nuts-256] run",
+            lambda: nuts.run_nuts(
+                logpost, torch.zeros((B, n_hp), dtype=torch.float64,
+                                     device="cuda"),
+                nuts.Draws(0, "cuda"), **kw))
+    rows = np.asarray(sl.rows)
+    div = float(diag["diverging"].double().mean())
+    rate, rate_s = B * S / secs, B * S / sl.sampling_s(S)
+    log(f"[nuts-256] {B} chains x {S} samples (n={SMALL_N}, d={SMALL_D}, "
+        f"SqExp precon f64, {json.dumps(kw)}) in {secs:.3f} s: {rate:.1f} "
+        f"samples/s ({rate_s:.1f} over the sampling phase); divergence "
+        f"share {div:.4f}, mean accept "
+        f"{float(diag['accept_prob'].mean()):.3f}, mean n_leapfrog "
+        f"{float(diag['n_leapfrog'].double().mean()):.2f}; lockstep leaves "
+        f"{rows.size} ({1e3 * secs / rows.size:.2f} ms each, "
+        f"{rows.mean():.1f} chains each); K1 {counts['K1']} K2 "
+        f"{counts['K2']} launches")
+    if not bool(torch.isfinite(zs).all()):
+        raise SystemExit("[nuts-256] non-finite samples")
+    lg = nuts.value_and_grad(logpost)
+    state = _state_at(torch, nuts, lg, zs[:, -1], {
+        k: diag[k].cpu().numpy() for k in ("step_size", "inv_mass")}, 3)
+
+    # one transition: ~60 lockstep leaves of ~480 host ops each, whose
+    # profiler records take longer to gather than the transition runs
+    prof = profile_fn(torch, "[nuts-256] 1 adapted transition",
+                      lambda: nuts.nuts_step(lg, state, NUTS_256["max_depth"]),
+                      GROUPS)
+    return dict(run_s=secs, samples_per_s=rate, samples_per_s_sampling=rate_s,
+                divergence_share=div, leaves=int(rows.size),
+                launches=counts,
+                idle_share=None if prof is None else prof["idle_share"])
+
+
+def phase_advi_smc(torch, ca, tgp, rosenbrock):
+    """[advi] (1000 steps, n_mc 8: K1 forward, K2 backward per step) and
+    [smc] (512 particles, 20 stages, 5 moves: value only, K1) with the JAX
+    defaults on bench.py's NUTS target; each fails on a non-finite
+    result."""
+    from gpgradpy_torch.inference import nuts, smc, vi
+    logpost, z_to_hp, n_hp = _small_logpost(torch, tgp, rosenbrock)
+    f64 = torch.float64
+    res, t_vi, c_vi = _path(
+        torch, ca, "[advi] 1000 steps, n_mc 8",
+        lambda: vi.run_advi(logpost, torch.zeros(n_hp, dtype=f64,
+                                                 device="cuda"),
+                            nuts.Draws(0, "cuda"), n_steps=1000, n_mc=8))
+    elbo = res.elbo_trace
+    log(f"[advi] {t_vi:.3f} s ({1e3 * t_vi / 1000:.2f} ms per step): last "
+        f"ELBO {float(elbo[-1]):.6g} (first {float(elbo[0]):.6g}), log10 "
+        f"theta at mu {z_to_hp(res.mu).cpu().numpy().round(4)}, sigma "
+        f"{torch.exp(res.log_sigma).cpu().numpy().round(4)}; K1 {c_vi['K1']} "
+        f"K2 {c_vi['K2']} launches")
+    if not all(bool(torch.isfinite(t).all()) for t in res):
+        raise SystemExit("[advi] non-finite result")
+
+    def prior(draws, n):
+        # the box-uniform prior of make_gp_logpost, in z
+        u = draws.uniform((n, n_hp), f64)
+        return torch.log(u) - torch.log1p(-u)
+    r, t_smc, c_smc = _path(
+        torch, ca, "[smc] 512 particles, 20 stages, 5 moves",
+        lambda: smc.run_smc(logpost, prior, nuts.Draws(0, "cuda"),
+                            n_particles=512, n_stages=20, n_mcmc=5),
+        need=("K1",))
+    w = torch.softmax(r.log_weights, 0)
+    mean_hp = (w[:, None] * z_to_hp(r.particles)).sum(0)
+    log(f"[smc] {t_smc:.3f} s: min ESS share {float(r.ess_trace.min()):.4f}"
+        f", weighted mean log10 theta {mean_hp.cpu().numpy().round(4)}; K1 "
+        f"{c_smc['K1']} K2 {c_smc['K2']} launches (value only)")
+    if not all(bool(torch.isfinite(t).all()) for t in
+               (r.particles, r.log_weights, r.ess_trace)):
+        raise SystemExit("[smc] non-finite result")
+    return dict(advi=dict(s=t_vi, last_elbo=float(elbo[-1]), launches=c_vi),
+                smc=dict(s=t_smc, min_ess=float(r.ess_trace.min()),
+                         launches=c_smc))
+
+
 def _time_ms(torch, fn, reps, flush):
     """Mean device time of fn over reps calls, L2 flushed before each."""
     fn()
@@ -1187,6 +1506,10 @@ def main():
                   tli, GaussianProcess, rosenbrock, np.asarray(itr["theta"]))
     cvc = phase("iterative card vs cpu", phase_iterative_card_vs_cpu, torch,
                 ca, GaussianProcess)
+    nuts_d10 = phase("nuts-d10", phase_nuts_d10, torch, ca, GaussianProcess,
+                     rosenbrock)
+    nuts_256 = phase("nuts-256", phase_nuts_256, torch, ca, tgp, rosenbrock)
+    vi_smc = phase("advi and smc", phase_advi_smc, torch, ca, tgp, rosenbrock)
     rows, ctx = phase("kernel times", phase_times, torch, ca, KernGradFn)
     walls = phase("fit repeats", phase_fit_repeats, torch, GaussianProcess,
                   rosenbrock)
@@ -1225,6 +1548,9 @@ def main():
         "iterative_d10": itr,
         "iterative_large_d10_n2000": large,
         "iterative_card_vs_cpu": cvc,
+        "nuts_d10": nuts_d10,
+        "nuts_256": nuts_256,
+        "advi_smc": vi_smc,
         "phase_s": phase_s,
     }
     if prof_iter is not None:

@@ -28,6 +28,8 @@ from . import convert
 from .config import GpConfig
 from .fit import iterative_driver, multistart, scipy_driver
 from .fit.history import FitHistory
+from .inference import nuts
+from .inference.draws import Draws
 from .model import (conditioning, likelihood, likelihood_iter, predict,
                     predict_iter, rescale)
 from .ops import rtensor
@@ -704,12 +706,48 @@ class GaussianProcess:
         return self.DataScl.obj_scl_2_init(*args, **kw)
 
     # ------------------------------------------------------------------
-    # features of later slices
+    # Bayesian hyperparameter posteriors
     # ------------------------------------------------------------------
 
-    def sample_posterior(self, *args, **kw):
-        raise NotImplementedError(
-            "sample_posterior (NUTS) comes with ROADMAP.md Queue 1 item 10")
+    def sample_posterior(self, n_chains: int = 8, n_warmup: int = 400,
+                         n_samples: int = 400, max_depth: int = 8,
+                         seed: int = 0, use_mesh: bool = False):
+        """NUTS posterior over the numerically optimized hyperparameters
+        (box-uniform prior on the optimization-space vector within the
+        current bounds), all chains batched on the model's device with
+        per-chain adaptation.  The chains start at the current
+        hyperparameters (or zeros in z) plus 0.1 x normal jitter; every draw
+        comes from a CPU generator seeded with ``seed``.  Returns
+        (hp_samples (chains, samples, n_hp) in VALUE space, diagnostics dict
+        of numpy arrays)."""
+        if use_mesh:
+            raise NotImplementedError(
+                "sample_posterior(use_mesh=True): sharding the chains over "
+                "devices comes with ROADMAP.md Queue 1 item 12")
+        cfg, spec, info = self.cfg, self.spec, self.hp_info_optz_lkd
+        bounds = multistart.get_hp_bounds(cfg, info, self.history, 0)
+        logpost, z_to_hp, hp_to_z = nuts.make_gp_logpost(
+            cfg, spec, info, self.data, float(self._etaK), bounds.box_lb,
+            bounds.box_ub)
+        if self.hp_vals is not None and self.hp_vals.theta is not None:
+            z_init = hp_to_z(hypers_to_hp_vec(info, self.hp_vals).to(
+                self.dtype))
+        else:
+            z_init = torch.zeros(info.n_hp, dtype=self.dtype,
+                                 device=self.device)
+        draws = Draws(seed, self.device)
+        z0 = z_init[None, :] + 0.1 * draws.normal((n_chains, info.n_hp),
+                                                  self.dtype)
+        zs, diag = nuts.run_nuts(logpost, z0, draws, n_warmup=n_warmup,
+                                 n_samples=n_samples, max_depth=max_depth)
+        hp_vals = z_to_hp(zs).cpu().numpy()
+        bvec = info.bvec_log
+        hp_vals[..., bvec] = 10.0 ** hp_vals[..., bvec]
+        return hp_vals, {k: v.cpu().numpy() for k, v in diag.items()}
+
+    # ------------------------------------------------------------------
+    # features of later slices
+    # ------------------------------------------------------------------
 
     def get_txt_info_surr(self, *args, **kw):
         raise NotImplementedError(

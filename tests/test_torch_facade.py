@@ -80,8 +80,8 @@ def test_options_of_later_slices_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         GaussianProcess(2, True, "SqExp", wellcond, device="cpu", **kw)
     gp = GaussianProcess(2, True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        gp.sample_posterior()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 12"):
+        gp.sample_posterior(use_mesh=True)
 
 
 def test_base_method_float32_and_padding():
