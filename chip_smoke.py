@@ -11,8 +11,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      card, 3 families x f32/f64 x square/rectangular/ragged x batched, and
      the edges of the kernels' tiling and 16-byte accesses: d=1, d=33,
      n1=201 against n2=37 (rows that break 16-byte alignment), B=2, each
-     also in f32 and all three families, and the iterative path's row
-     tiles (256 and the ragged 208 points against 2000, f64); then K2 run
+     also in f32 and all three families, the iterative path's row
+     tiles (256 and the ragged 208 points against 2000, f64) and the BO
+     loop's (n=106 at B=41 and B=1, n=8 at B=41); then K2 run
      twice on
      the same inputs at the main path's shape (B=1, B=41) must agree
      bitwise;
@@ -54,7 +55,16 @@ Phases, each printing its own lines; any failure exits non-zero:
      configuration (samples/s, idle share); '[advi]' and
      '[smc]' with the JAX defaults on the same target.  Each runs as a
      path with its own launch counts (SMC: value only, K1);
-  8. times at the main path's shape with CUDA events: each kernel at B=1
+  8. the BO loop: '[bo-d10]' resumes the paper's d=10 run (Rosenbrock,
+     SqExp, precon, EI, the local trust-region exploit) from the repo's
+     trace after 104 evaluations and runs 6 steps, 3 explore (a global
+     refit and propose_next) and 3 exploit (a local GP): per step its
+     seconds, the acquisition L-BFGS's iterations and calls and its own
+     K1/K2 counts (explore: both must launch; exploit: K1), finite
+     results in the box, the card's EI and gradient held to a CPU GP with
+     the card's hyperparameters, EI at both proposals, and one
+     propose_next profiled;
+  9. times at the main path's shape with CUDA events: each kernel at B=1
      and B=41 beside its bound, its plain version and the first port's
      time, and at the iterative path's row tile (256 x 2000 points); for
      context, one PyTorch write (fill_) and read (sum) of as many bytes,
@@ -63,12 +73,14 @@ Phases, each printing its own lines; any failure exits non-zero:
      of 'precon' and one of 'base' under torch.profiler, device time by
      layer.
 Each phase prints its seconds.  A "[summary]" JSON line gathers the
-results.  The line before the last is a JSON object {"kernels": [...]}
+results.  Phase names given as arguments (e.g. "bo-d10") run those
+phases alone after card and build, without the two closing lines.  The line before the last is a JSON object {"kernels": [...]}
 whose launch counts are those of the warm d=10 fit + predict; the last
 line is {"ok": true, "device": {...}}.
 """
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -154,7 +166,8 @@ def _inputs(torch, rng, n1, n2, d, B, dtype, kernel_type, same):
 
 def phase_kernels(torch, ca):
     """K1/K2 against their plain versions, at the main path's shapes, the
-    tiling's edges and the iterative path's row tiles; returns the max abs
+    tiling's edges, the iterative path's row tiles and the BO loop's
+    shapes; returns the max abs
     errors at the main path's shapes (f64, n=200, d=10)."""
     rng = np.random.default_rng(0)
     cases = [  # (n1, n2, d, B, same points)
@@ -178,6 +191,11 @@ def phase_kernels(torch, ca):
         # against n_eval=2000, and the ragged last tile of 208
         (256, 2000, 10, None, False),
         (208, 2000, 10, None, False),
+        # [bo-d10]: the global refit at n_eval 104-106 (its scan batch and
+        # its L-BFGS rows) and the exploit phase's local GP of 8 points
+        (106, 106, 10, 41, True),
+        (106, 106, 10, None, True),
+        (8, 8, 10, 41, True),
     ]
     worst = {"K1": 0.0, "K2": 0.0}
     ok = True
@@ -1243,6 +1261,266 @@ def phase_advi_smc(torch, ca, tgp, rosenbrock):
                          launches=c_smc))
 
 
+# ---------------------------------------------------------------------------
+# the BO loop: [bo-d10]
+# ---------------------------------------------------------------------------
+
+# the paper's d=10 run (examples/run_paper_traces.py:93-96,163-168):
+# Rosenbrock a=10 on [-2, 2]^10, SqExp, precon, f64, n_init = d + 2 = 12,
+# EI, the local trust-region exploit with a precon local GP, seed 0.  It is
+# resumed from the repo's trace of that run after its first 104 evaluations
+# (12 initial points + 92 iterations) and runs 6 steps: with n_iter 98 and
+# exploit_frac 3.5 / 98 the exploit phase starts at i >= 94.5, so
+# iterations 92-94 explore (a global refit at n_eval 104-106, N = 1144-1166
+# covariance rows, then propose_next) and 95-97 exploit
+BO_TRACE = "results_data/full_d10/Rosen_a10_d10_Precondition_s0.npz"
+BO_D10 = dict(n_init=12, n_resume=104, n_iter=98, exploit_frac=3.5 / 98,
+              seed=0)
+BO_GP = {"device": "cuda"}
+# card vs CPU: EI and its gradient to 1e-9 of the largest entry of the
+# surrogate terms they are built from (|mu - f*| + sig, |dmu| + |dsig|).
+# Not of EI's own largest entry: at EI's stationary point (the proposal)
+# its gradient (largest entry 1.5 at this phase's last explore step) is
+# ~200x below its terms (dmu up to ~290), and two LAPACK builds set those
+# ~1e-10 apart at cond ~1e10 (ROADMAP.md Queue 3); that measure is
+# printed too
+BO_ACQ_RTOL = 1e-9
+BO_PROPOSAL_RTOL = 1e-6  # EI at the card's and the CPU's proposals
+
+
+class BoStepLog:
+    """Inside the block, records each step of bo.loop.run_bo: the global
+    refit's and propose_next's wall seconds (after a sync), the acquisition
+    L-BFGS's iterations, objective calls and rows per call, the local
+    exploit's seconds and its local fit's, and the K1/K2 launches between
+    two truth evaluations (the counts are set to 0 at each evaluation, so
+    each step's count starts just before it)."""
+
+    def __init__(self, torch, ca, loop, lbfgs, GaussianProcess, obj):
+        self.torch, self.ca, self.loop, self.lbfgs = torch, ca, loop, lbfgs
+        self.GP, self.obj = GaussianProcess, obj
+        self.steps, self.cur = [], {}
+        self.proposals = []  # (gp, fbest, seed, acq, x_new) per propose
+        self.in_propose = False
+
+    def sync(self):
+        if self.torch.cuda.is_available():
+            self.torch.cuda.synchronize()
+
+    def timed(self, key, fn):
+        def run(*a, **kw):
+            self.sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.sync()
+            self.cur[key] = self.cur.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    def objective(self, x):
+        out = self.obj(x)
+        if len(x) == 1:              # a step's truth evaluation
+            self.sync()
+            self.cur["K1"] = self.ca.kern_grad.launches
+            self.cur["K2"] = self.ca.kern_grad_vjp_theta.launches
+            self.steps.append(self.cur)
+            self.cur = {}
+        self.ca.reset_launches()
+        return out
+
+    def __enter__(self):
+        loop, lbfgs, GP = self.loop, self.lbfgs, self.GP
+        self.orig = (loop.propose_next, loop._propose_local_exploit,
+                     lbfgs.lbfgs_box_multistart, GP.set_hpara)
+        propose, local, solver, set_hpara = self.orig
+        log_ = self
+
+        def propose_rec(gp, lb, ub, fbest, seed=0, **kw):
+            log_.in_propose = True
+            x = log_.timed("propose_s", propose)(gp, lb, ub, fbest,
+                                                 seed=seed, **kw)
+            log_.in_propose = False
+            log_.proposals.append((gp, fbest, seed, kw.get("acq"), x))
+            return x
+
+        def solver_rec(fun, x0, *a, **kw):
+            if not log_.in_propose:      # a hyperparameter fit's L-BFGS
+                return solver(fun, x0, *a, **kw)
+            rows = []
+
+            def fun_rec(X):
+                rows.append(len(X))
+                return fun(X)
+            res = solver(fun_rec, x0, *a, **kw)
+            log_.cur.update(lbfgs_iters=res.n_iter.tolist(),
+                            calls=len(rows), rows=int(sum(rows)))
+            return res
+
+        def set_hpara_rec(gp, method, *a, **kw):
+            key = "refit_s" if method == "optz" else "set_hpara_s"
+            return log_.timed(key, set_hpara)(gp, method, *a, **kw)
+
+        loop.propose_next = propose_rec
+        loop._propose_local_exploit = self.timed("exploit_s", local)
+        lbfgs.lbfgs_box_multistart = solver_rec
+        GP.set_hpara = set_hpara_rec
+        return self
+
+    def __exit__(self, *exc):
+        loop, lbfgs, GP = self.loop, self.lbfgs, self.GP
+        (loop.propose_next, loop._propose_local_exploit,
+         lbfgs.lbfgs_box_multistart, GP.set_hpara) = self.orig
+
+
+def _bo_card_vs_cpu(torch, GaussianProcess, loop, gp, fbest, seed, x_card,
+                    lb, ub):
+    """The global GP of an explore step on the card against a CPU GP on the
+    same data with the card's fitted hyperparameters: the EI objective and
+    its gradient at propose_next's 17 starts and at the card's proposal
+    (see BO_ACQ_RTOL), then EI at the card's and at
+    the CPU's own proposal (rtol BO_PROPOSAL_RTOL).  The x values are not
+    compared: a flat EI lets them differ."""
+    from gpgradpy_torch import convert
+    d = gp.cfg.dim
+    cpu = GaussianProcess(d, True, gp.cfg.kernel_type, gp.cfg.wellcond_mtd,
+                          device="cpu")
+    cpu.init_optz_surr(1)
+    cpu.set_data(gp._x_eval_in, gp._fval_in, gp._std_fval_in, gp._grad_in,
+                 gp._std_grad_in)
+    cpu.set_custom_hp(**convert.hypers_to_numpy(gp.hp_vals))
+    cpu.set_hpara("current", 0)
+    X = np.vstack([loop.acq_starts(gp, lb, ub, 16, seed), x_card[None, :]])
+    a_c, g_c, _ = loop.acq_objective(gp, "ei", 2.0, fbest)(X)
+    a_h, g_h, _ = loop.acq_objective(cpu, "ei", 2.0, fbest)(X)
+    mu, sig, dmu, dsig = cpu.eval_model(X, calc_grad=True)[:4]
+    scale_a = np.max(np.abs(mu - fbest) + sig)
+    scale_g = np.max(np.abs(dmu) + np.abs(dsig))
+    err_a = float(np.max(np.abs(a_c - a_h)) / scale_a)
+    err_g = float(np.max(np.abs(g_c - g_h)) / scale_g)
+    own_a = float(np.max(np.abs(a_c - a_h)) / np.max(np.abs(a_h)))
+    own_g = float(np.max(np.abs(g_c - g_h)) / np.max(np.abs(g_h)))
+    row_err = np.max(np.abs(g_c - g_h), 1) / scale_g
+    t0 = time.perf_counter()
+    x_cpu = loop.propose_next(cpu, lb, ub, fbest, acq="ei", seed=seed)
+    t_cpu = time.perf_counter() - t0
+    ei_card = float(a_c[-1])
+    ei_cpu = float(loop.acq_objective(cpu, "ei", 2.0, fbest)(
+        x_cpu[None, :])[0][0])
+    err_p = abs(ei_card - ei_cpu) / abs(ei_cpu)
+    ok = err_a <= BO_ACQ_RTOL and err_g <= BO_ACQ_RTOL \
+        and err_p <= BO_PROPOSAL_RTOL
+    log(f"[bo-d10] card vs CPU at the last explore step's GP (N = "
+        f"{gp.spec.n_data}): -EI at the 17 starts and the proposal, max "
+        f"|diff| / max (|mu - f*| + sig) {err_a:.3e} ({scale_a:.4g}), "
+        f"gradient / max (|dmu| + |dsig|) {err_g:.3e} ({scale_g:.4g}) (tol "
+        f"{BO_ACQ_RTOL:.0e}; per row {np.array2string(row_err, precision=1)}"
+        f"); of EI's own largest entry {own_a:.3e} / {own_g:.3e}; -EI at "
+        f"the card's proposal {ei_card:.10g}, at the CPU's "
+        f"{ei_cpu:.10g}: rel {err_p:.3e} (tol {BO_PROPOSAL_RTOL:.0e}); "
+        f"|x_card - x_cpu| {np.max(np.abs(x_card - x_cpu)):.3e}; the CPU's "
+        f"propose_next took {t_cpu:.2f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[bo-d10] the card's acquisition disagrees with the "
+                         "CPU path")
+    return dict(ei_rel=err_a, grad_rel=err_g, ei_rel_own=own_a,
+                grad_rel_own=own_g, proposal_ei_rel=err_p, cpu_propose_s=t_cpu)
+
+
+def phase_bo_d10(torch, ca, GaussianProcess, rosenbrock):
+    """[bo-d10]: run_bo resumed from the d=10 trace for 6 steps (BO_D10):
+    each step's seconds, L-BFGS work and launches; every explore step's
+    refit must launch K1 and K2, every exploit step's local fit K1; every
+    merit and optimality finite, every proposal in the box; the split of
+    3 explore and 3 exploit steps read from run_bo's verbose record; the
+    card's acquisition against the CPU path; one propose_next profiled."""
+    import contextlib
+    import io
+    from gpgradpy_torch.bo import loop
+    from gpgradpy_torch.fit import lbfgs
+    cfg = BO_D10
+    d, n0, n_res = 10, cfg["n_init"], cfg["n_resume"]
+    lb, ub = np.full(d, -2.0), np.full(d, 2.0)
+    rec = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               BO_TRACE))
+    n_total = n0 + cfg["n_iter"]
+
+    def head(a):
+        out = np.full((n_total,) + a.shape[1:], np.nan)
+        out[:n_res] = a[:n_res]
+        return out
+    resume = loop.BoTrace(**{k: head(rec[k]) for k in loop.BoTrace._fields})
+    n_steps = cfg["n_iter"] - (n_res - n0)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    ca.reset_launches()
+    t0 = time.perf_counter()
+    with BoStepLog(torch, ca, loop, lbfgs, GaussianProcess,
+                   rosenbrock) as bl, contextlib.redirect_stdout(buf):
+        trace = loop.run_bo(bl.objective, lb, ub, cfg["n_iter"], n_init=n0,
+                            kernel_type="SqExp", wellcond_mtd="precon",
+                            acq="ei", exploit_frac=cfg["exploit_frac"],
+                            exploit_local=True, exploit_wellcond="precon",
+                            seed=cfg["seed"], gp_options=BO_GP, verbose=True,
+                            resume_trace=resume)
+    run_s = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"[bo-d10] run_bo: {line}")
+    kinds = ["exploit" if "exploit[" in s else "explore" for s in lines]
+    steps = bl.steps
+    new = slice(n_res, n_total)
+    bad = []
+    if kinds != ["explore"] * 3 + ["exploit"] * 3 or len(steps) != n_steps:
+        bad.append(f"steps {kinds} ({len(steps)} evaluated), not 3 explore "
+                   "then 3 exploit")
+    for i, (kind, st) in enumerate(zip(kinds, steps)):
+        k = n_res + i
+        t_it = float(trace.time_iter[k])
+        it = np.asarray(st.get("lbfgs_iters", [0]))
+        calls = st.get("calls", 0)
+        # in an exploit step the refit is the local GP's fit
+        fit = "refit" if kind == "explore" else "local fit"
+        log(f"[bo-d10] step {i} (iteration {k - n0}, {kind}, n_eval {k}): "
+            f"time_iter {t_it:.3f} s; {fit} {st.get('refit_s', 0.0):.3f} s, "
+            f"propose {st.get('propose_s', 0.0):.3f} s, local exploit "
+            f"{st.get('exploit_s', 0.0):.3f} s; acquisition L-BFGS "
+            f"iterations mean {it.mean():.1f} max {it.max()}, {calls} "
+            f"objective calls, {st.get('rows', 0) / max(calls, 1):.1f} points"
+            f" per call; launches K1 {st['K1']} K2 {st['K2']}; merit "
+            f"{trace.merit_all[k]:.4e}")
+        need = ("K1", "K2") if kind == "explore" else ("K1",)
+        if min(st[c] for c in need) < 1:
+            bad.append(f"step {i} ({kind}) launched no {need}")
+    x_new = trace.x_all[new]
+    finite = bool(np.all(np.isfinite(trace.merit_all[new]))
+                  and np.all(np.isfinite(trace.opt_all[new])))
+    in_box = bool(np.all((x_new >= lb) & (x_new <= ub)))
+    if not (finite and in_box):
+        bad.append(f"finite {finite}, in the box {in_box}")
+    if bad:
+        raise SystemExit(f"[bo-d10] failed: {bad}")
+
+    gp, fbest, seed, _, x_card = [p for p in bl.proposals
+                                  if p[3] == "ei"][-1]
+    cvc = _bo_card_vs_cpu(torch, GaussianProcess, loop, gp, fbest, seed,
+                          x_card, lb, ub)
+    prof = profile_fn(torch, "[bo-d10] one propose_next (EI, 17 starts)",
+                      lambda: loop.propose_next(gp, lb, ub, fbest, acq="ei",
+                                                seed=seed), GROUPS)
+    explore = [float(trace.time_iter[n_res + i]) for i, k in enumerate(kinds)
+               if k == "explore"]
+    exploit = [float(trace.time_iter[n_res + i]) for i, k in enumerate(kinds)
+               if k == "exploit"]
+    log(f"[bo-d10] seconds per step: explore {', '.join(f'{t:.3f}' for t in explore)}"
+        f"; exploit {', '.join(f'{t:.3f}' for t in exploit)}; run "
+        f"{run_s:.2f} s (the replay included)")
+    return dict(explore_s=explore, exploit_s=exploit, run_s=run_s,
+                steps=steps, card_vs_cpu=cvc,
+                propose_profile=None if prof is None else {
+                    k: prof[k] for k in ("device_ms", "wall_ms",
+                                         "idle_share")})
+
+
 def _time_ms(torch, fn, reps, flush):
     """Mean device time of fn over reps calls, L2 flushed before each."""
     fn()
@@ -1481,8 +1759,13 @@ def main():
 
     t_start = time.perf_counter()
     phase_s = {}
+    # phases named on the command line run alone (after card and build),
+    # without the closing lines; with no argument every phase runs
+    only = set(sys.argv[1:])
 
     def phase(name, fn, *args, **kw):
+        if only and name not in only | {"card", "build"}:
+            return None
         t0 = time.perf_counter()
         res = fn(*args, **kw)
         phase_s[name] = time.perf_counter() - t0
@@ -1501,22 +1784,31 @@ def main():
     itr = phase("iterative", phase_iterative, torch, ca, it, GaussianProcess,
                 rosenbrock)
     prof_iter = phase("profile iterative objective", profile_iter_objective,
-                      torch, it, tli, itr.pop("gp"), itr.pop("fit_cfg"))
+                      torch, it, tli, *(itr.pop(k) for k in ("gp", "fit_cfg"))
+                      ) if itr else None
     large = phase("iterative-large", phase_iterative_large, torch, ca, it,
-                  tli, GaussianProcess, rosenbrock, np.asarray(itr["theta"]))
+                  tli, GaussianProcess, rosenbrock,
+                  np.asarray(itr["theta"])) if itr else None
     cvc = phase("iterative card vs cpu", phase_iterative_card_vs_cpu, torch,
                 ca, GaussianProcess)
     nuts_d10 = phase("nuts-d10", phase_nuts_d10, torch, ca, GaussianProcess,
                      rosenbrock)
     nuts_256 = phase("nuts-256", phase_nuts_256, torch, ca, tgp, rosenbrock)
     vi_smc = phase("advi and smc", phase_advi_smc, torch, ca, tgp, rosenbrock)
-    rows, ctx = phase("kernel times", phase_times, torch, ca, KernGradFn)
+    bo_d10 = phase("bo-d10", phase_bo_d10, torch, ca, GaussianProcess,
+                   rosenbrock)
+    rows, ctx = phase("kernel times", phase_times, torch, ca,
+                      KernGradFn) or (None, None)
     walls = phase("fit repeats", phase_fit_repeats, torch, GaussianProcess,
                   rosenbrock)
     prof = phase("profile precon", phase_profile, torch, GaussianProcess,
                  rosenbrock)
     prof_base = phase("profile base", phase_profile, torch, GaussianProcess,
                       rosenbrock, wellcond="base")
+
+    if only:
+        log("[summary] " + json.dumps({"phase_s": phase_s, "bo_d10": bo_d10}))
+        return 0
 
     # the results in one line near the end, so that a cut-off tail keeps them
     summary = {
@@ -1551,6 +1843,7 @@ def main():
         "nuts_d10": nuts_d10,
         "nuts_256": nuts_256,
         "advi_smc": vi_smc,
+        "bo_d10": bo_d10,
         "phase_s": phase_s,
     }
     if prof_iter is not None:

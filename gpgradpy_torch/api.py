@@ -30,8 +30,8 @@ from .fit import iterative_driver, multistart, scipy_driver
 from .fit.history import FitHistory
 from .inference import nuts
 from .inference.draws import Draws
-from .model import (conditioning, likelihood, likelihood_iter, predict,
-                    predict_iter, rescale)
+from .model import (conditioning, likelihood, likelihood_iter, mean,
+                    predict, predict_iter, rescale)
 from .ops import rtensor
 from .types import (DataSpec, GpData, HpInfo, Hypers, hp_vec_to_hypers,
                     hypers_to_hp_vec, make_data_spec)
@@ -673,6 +673,54 @@ class GaussianProcess:
 
         return predict_d
 
+    def calc_model_mean_w_data_init(self, x2model_init, fval_init,
+                                    grad_init=None, calc_grad: bool = True):
+        """Posterior mean (and its x-gradient) with the CURRENT
+        factorization and hyperparameters but another data vector, as in
+        the JAX package: the query points and data are mapped into the
+        rescaling frame, then ``calc_model_mean_w_data_scl``."""
+        self._check_eval_ready()
+        xq = np.atleast_2d(np.asarray(x2model_init, float))
+        fval = np.asarray(fval_init, float)
+        if self.DataScl is not None:
+            xq_s = self.DataScl.x_init_2_scl(xq)
+            fval_s, _, grad_s, _ = self.DataScl.obj_init_2_scl(
+                fval, None, grad_init, None)[:4]
+        else:
+            xq_s, fval_s, grad_s = xq, fval, grad_init
+        return self.calc_model_mean_w_data_scl(xq_s, fval_s, grad_s,
+                                               calc_grad=calc_grad)
+
+    def calc_model_mean_w_data_scl(self, x2model_scl, fval_scl,
+                                   grad_scl=None, calc_grad: bool = True):
+        """Scaled-frame twin of ``calc_model_mean_w_data_init``: query points
+        and data are already in the rescaling frame; mu (and dmu/dx) come
+        back in the init frame.  Without a rescaling the frames coincide.
+        Uses the cached factorization's solve and the predictor's cross
+        covariance on the model's device; returns numpy arrays."""
+        self._check_eval_ready()
+        cfg, spec, hp = self.cfg, self.spec, self.hp_vals
+        xq = self._tensor(np.atleast_2d(np.asarray(x2model_scl, float)))
+        with torch.no_grad():
+            data_vec = rtensor.make_data_vec(
+                self._tensor(np.asarray(fval_scl, float)),
+                None if grad_scl is None else self._tensor(grad_scl))
+            vand = mean.calc_aug_vand(cfg.mean_fun_type, self.data.x,
+                                      spec.use_grad, spec.idx_grad_arr)
+            sol = self._eval_state.ops.solve(data_vec - vand @ hp.beta)
+            Kyx, dKxy_dx = predict._cross_cov(cfg, spec, self.data.x, xq, hp)
+            mval, mgrad, _ = mean.eval_mean_fun(cfg.mean_fun_type, xq,
+                                                hp.beta)
+            mu = (mval + Kyx.T @ sol).cpu().numpy()
+            dmu = None
+            if calc_grad:
+                nx, dim = xq.shape
+                dmu = ((dKxy_dx @ sol).reshape(dim, nx).T
+                       + mgrad).cpu().numpy()
+        if self.DataScl is not None:
+            mu, _, dmu = self.DataScl.obj_scl_2_init(mu, None, dmu)[:3]
+        return mu, dmu
+
     # ------------------------------------------------------------------
     # frames / data access
     # ------------------------------------------------------------------
@@ -717,7 +765,7 @@ class GaussianProcess:
         current bounds), all chains batched on the model's device with
         per-chain adaptation.  The chains start at the current
         hyperparameters (or zeros in z) plus 0.1 x normal jitter; every draw
-        comes from a CPU generator seeded with ``seed``.  Returns
+        comes from counter-based streams seeded with ``seed``.  Returns
         (hp_samples (chains, samples, n_hp) in VALUE space, diagnostics dict
         of numpy arrays)."""
         if use_mesh:
@@ -757,9 +805,3 @@ class GaussianProcess:
         raise NotImplementedError(
             "the MLL contour plot (utils/) comes with ROADMAP.md Queue 1 item 11")
 
-    def calc_model_mean_w_data_init(self, *args, **kw):
-        raise NotImplementedError(
-            "calc_model_mean_w_data_* comes with the BO loop, ROADMAP.md "
-            "Queue 1 item 11")
-
-    calc_model_mean_w_data_scl = calc_model_mean_w_data_init

@@ -17,8 +17,11 @@ batched value + gradient call, scattered back), so a chain that has stopped
 costs no evaluation; each leaf reads one mask from the device.  A chain's
 transition is that of the JAX lane with the same draws.
 
-Every random draw comes from a ``Draws`` stream (draws.py), carried in
-``NutsState.rng`` as the JAX state carries its key.
+Every random draw comes from a ``Draws`` object (draws.py), carried in
+``NutsState.rng`` as the JAX state carries its key.  Each site is handed
+the host mask of the chains that consume its draw, so that each chain
+draws from its own stream and its transitions do not depend on the other
+chains.
 
 The target is any batched log-density ``z (B, n) -> (B,)``; for GP
 hyperparameter posteriors use ``make_gp_logpost`` (MLL + box-uniform prior
@@ -131,7 +134,7 @@ class NutsState(NamedTuple):
     grad: torch.Tensor           # (B, n)
     step: torch.Tensor           # (B,)
     inv_mass: torch.Tensor       # (B, n)
-    rng: Draws                   # the draw stream of all chains
+    rng: Draws                   # the draw streams, one per chain
     accept_prob: torch.Tensor    # (B,) mean accept prob of last trajectory
     diverging: torch.Tensor      # (B,) bool
     n_leapfrog: torch.Tensor     # (B,) int
@@ -145,12 +148,13 @@ def _where(mask, a, b):
     return torch.where(mask.view(-1, *([1] * (a.ndim - 1))), a, b)
 
 
-def _build_subtree(lg, draws, inv_mass, step, energy0, active, going_right,
-                   z, r, grad, logp0, n_leaves: int, max_depth: int):
+def _build_subtree(lg, draws, inv_mass, step, energy0, active, active_h,
+                   going_right, z, r, grad, logp0, n_leaves: int,
+                   max_depth: int):
     """Add up to ``n_leaves`` leaves to the edge (z, r, grad) of every
     active chain, in lockstep; a chain stops at its first U-turn or
     divergence, as its lane's while_loop does in the JAX package
-    (nuts.py:137-213 there)."""
+    (nuts.py:137-213 there).  ``active_h`` is ``active`` on the host."""
     B, n = z.shape
     dt = z.dtype
     direction = torch.where(going_right, 1.0, -1.0).to(dt)
@@ -167,10 +171,12 @@ def _build_subtree(lg, draws, inv_mass, step, energy0, active, going_right,
     diverging = torch.zeros_like(active)
     live = active
     for i in range(n_leaves):
-        idx = torch.nonzero(live).squeeze(1)       # the leaf's one sync
-        if idx.numel() == 0:
+        # the leaf's one sync (the first leaf's mask is the doubling's)
+        live_h = active_h if i == 0 else live.cpu().numpy()
+        if not live_h.any():
             break
-        u = draws.leaf_uniform(B, dt)
+        idx = torch.as_tensor(np.flatnonzero(live_h), device=z.device)
+        u = draws.leaf_uniform(live_h, dt)
         z_a, r_a, g_a, lp_a = _leapfrog(lg, inv_mass[idx],
                                         (direction * step)[idx], z[idx],
                                         r[idx], grad[idx])
@@ -239,20 +245,23 @@ def nuts_step(logp_and_grad: Callable, state: NutsState,
     diverging = torch.zeros_like(turning)
     active = ~turning
 
+    active_h = np.ones(B, bool)
     for depth in range(max_depth):
-        if depth and not bool(active.any()):
-            break
-        going_right = draws.direction(B)
+        if depth:
+            active_h = active.cpu().numpy()
+            if not active_h.any():
+                break
+        going_right = draws.direction(active_h)
         z_e = _where(going_right, z_right, z_left)
         r_e = _where(going_right, r_right, r_left)
         g_e = _where(going_right, g_right, g_left)
         (z_e, r_e, g_e, z_prop_n, logp_prop_n, g_prop_n, log_w_n, r_sum_n,
          sum_acc_n, turn_n, div_n) = _build_subtree(
-            logp_and_grad, draws, inv_mass, step, energy0, active,
+            logp_and_grad, draws, inv_mass, step, energy0, active, active_h,
             going_right, z_e, r_e, g_e, logp0, 2 ** depth, max_depth)
 
         # biased progressive sampling across the doubling
-        u = draws.doubling_uniform(B, dt)
+        u = draws.doubling_uniform(active_h, dt)
         accept_new = torch.exp(torch.clamp_max(log_w_n - log_weight, 0.0))
         take = active & (u < accept_new) & ~turn_n & ~div_n
         z_prop = _where(take, z_prop_n, z_prop)
@@ -414,29 +423,30 @@ def run_nuts(logp_fn: Callable, z0: torch.Tensor, draws: Draws,
 
 def save_chain_state(path: str, state: NutsState):
     """Persist a chain-batched NutsState to npz, with the keys of the JAX
-    package's file; ``rng`` holds the draw generator's state."""
+    package's file; ``rng`` holds the draws' per-chain counters (uint64,
+    chains x sites) and ``rng_seed`` their seed."""
     np.savez(path, z=state.z.cpu().numpy(), logp=state.logp.cpu().numpy(),
              grad=state.grad.cpu().numpy(), step=state.step.cpu().numpy(),
              inv_mass=state.inv_mass.cpu().numpy(),
-             rng=state.rng.get_state())
+             rng=state.rng.get_state(), rng_seed=state.rng.seed)
 
 
 def load_chain_state(path: str, draws: Draws) -> NutsState:
     """Read a chain state saved by ``save_chain_state`` of this package or
     of the JAX package (z, logp, grad, step, inv_mass) onto
-    ``draws.device``.  Where the port wrote the file, its ``rng`` entry is
-    the generator state and is loaded into ``draws``.  A file of the JAX
-    package holds JAX keys, which torch cannot use: ``draws`` then keeps
-    the stream it was given, so seed it explicitly (``Draws(seed)``)."""
+    ``draws.device``.  Where the port wrote the file, its seed and per-chain
+    counters are loaded into ``draws``, so each chain's stream goes on
+    where it stopped.  A file of the JAX package holds JAX keys, which
+    torch cannot use: ``draws`` then keeps the streams it was given, so
+    seed it explicitly (``Draws(seed)``)."""
     d = np.load(path)
     dev = draws.device
 
     def t(name):
         return torch.as_tensor(d[name], device=dev)
 
-    rng = d["rng"]
-    if rng.dtype == np.uint8 and rng.ndim == 1:
-        draws.set_state(rng)
+    if "rng_seed" in d:
+        draws.set_state(d["rng"], seed=int(d["rng_seed"]))
     logp = t("logp")
     B = logp.shape[0]
     return NutsState(z=t("z"), logp=logp, grad=t("grad"), step=t("step"),

@@ -388,6 +388,82 @@ def test_diagnostics_match_jax():
                    ess_j(jnp.asarray(s), lag), 1e-12)
 
 
+class ChainZeroLog(Draws):
+    """The port's default streams, logging every draw that chain 0
+    consumes (momentum each transition; a direction, a doubling uniform
+    and leaf uniforms where its mask holds it)."""
+
+    def __init__(self, seed):
+        super().__init__(seed)
+        self.log = []
+
+    def momentum(self, n_chains, n, dtype):
+        v = super().momentum(n_chains, n, dtype)
+        self.log.append(v[0])
+        return v
+
+    def _logged(self, v, mask):
+        if mask[0]:
+            self.log.append(v[:1].to(torch.float64))
+        return v
+
+    def direction(self, active):
+        return self._logged(super().direction(active), active)
+
+    def leaf_uniform(self, live, dtype):
+        return self._logged(super().leaf_uniform(live, dtype), live)
+
+    def doubling_uniform(self, active, dtype):
+        return self._logged(super().doubling_uniform(active, dtype), active)
+
+
+def _chain_logp(z):
+    """The correlated Gaussian, entry by entry: a row's value does not
+    depend on the other rows of the batch."""
+    return -0.5 * (PREC[0, 0] * z[:, 0] ** 2 + 2 * PREC[0, 1] * z[:, 0]
+                   * z[:, 1] + PREC[1, 1] * z[:, 1] ** 2)
+
+
+def test_nuts_chain_does_not_depend_on_the_other_chains():
+    """Two chains with per-chain adaptation; only chain 1's start changes
+    (near the mode, then far out in the tail, where its trees differ).
+    Chain 0's samples, diagnostics and consumed draws stay bitwise the
+    same, as each JAX lane's do with its own key.  With one stream shared
+    by the chains, the lockstep group's leaf count (its longest tree) set
+    how many draws chain 0 skipped."""
+    kw = dict(n_warmup=30, n_samples=30, max_depth=6)
+    starts = ([0.5, -0.3], [6.0, -5.0])
+
+    def run(draws_cls):
+        out = []
+        for z1 in starts:
+            d = draws_cls(7)
+            out.append((*nuts.run_nuts(_chain_logp, _t([[0.2, 0.1], z1]), d,
+                                       **kw), d))
+        return out
+
+    (zs_a, diag_a, _), (zs_b, diag_b, _) = run(Draws)
+    assert not torch.equal(zs_a[1], zs_b[1])
+    assert not torch.equal(diag_a["n_leapfrog"][1], diag_b["n_leapfrog"][1])
+    assert torch.equal(zs_a[0], zs_b[0])
+    for k in diag_a:
+        assert torch.equal(diag_a[k][0], diag_b[k][0]), k
+    (zs_c, _, log_a), (_, _, log_b) = run(ChainZeroLog)
+    assert torch.equal(zs_c, zs_a)
+    assert len(log_a.log) == len(log_b.log)
+    assert all(torch.equal(a, b) for a, b in zip(log_a.log, log_b.log))
+
+    jl, _ = gauss_logp()
+    keys = jax.random.split(jax.random.PRNGKey(7), 2)
+    run = jax.jit(jax.vmap(lambda z, k: jnuts.run_nuts(jl, z, k, **kw)))
+    (zj_a, dj_a), (zj_b, dj_b) = (run(jnp.asarray([[0.2, 0.1], z1]), keys)
+                                  for z1 in starts)
+    assert not np.array_equal(zj_a[1], zj_b[1])
+    np.testing.assert_array_equal(zj_a[0], zj_b[0])
+    for k in dj_a:
+        np.testing.assert_array_equal(dj_a[k][0], dj_b[k][0])
+
+
 # ---------------------------------------------------------------------------
 # Chain state carried across packages
 # ---------------------------------------------------------------------------
@@ -474,12 +550,7 @@ def test_nuts_f32_state_f64_logp():
     assert float(diag["diverging"].double().mean()) < 0.5
 
 
-def test_nuts_gp_hyperparameter_posterior():
-    """The posterior over log10(theta) of the d=1 GP concentrates around
-    the port's MAP estimate.  Cut from the JAX test's 200 + 300 transitions
-    at depth 8 to 30 + 30 at depth 5: the posterior takes ~40 leapfrogs per
-    transition at ~4 ms each on the CPU, and the median sits within 0.04
-    of the MAP (limit 0.5) at this size on seeds 0-2."""
+def _gp_posterior_concentrates(n_warmup, n_samples, max_depth):
     _, (tl, z_to_hp), _ = gp_problem(1)
     n = 8
     x = np.linspace(2.5, 7.5, n)[:, None]
@@ -494,10 +565,28 @@ def test_nuts_gp_hyperparameter_posterior():
     fit = multistart.fit_map(cfg, spec, tgp.HpInfo(dim=1), data,
                              tcond.calc_etaK(cfg, n))
     zs, diag = nuts.run_nuts(tl, torch.zeros((4, 1), dtype=F64), Draws(2),
-                             n_warmup=30, n_samples=30, max_depth=5)
+                             n_warmup=n_warmup, n_samples=n_samples,
+                             max_depth=max_depth)
     hp = z_to_hp(zs).reshape(-1).numpy()
     assert abs(np.median(hp) - float(fit.hp_vec[0])) < 0.5
     assert float(diag["diverging"].double().mean()) < 0.05
+
+
+def test_nuts_gp_hyperparameter_posterior():
+    """The posterior over log10(theta) of the d=1 GP concentrates around
+    the port's MAP estimate.  Cut from the JAX test's 200 + 300 transitions
+    at depth 8 to 30 + 30 at depth 5: the posterior takes ~40 leapfrogs per
+    transition at ~4 ms each on the CPU, and the median sits within 0.04
+    of the MAP (limit 0.5) at this size on seeds 0-2.  The JAX length runs
+    in test_nuts_gp_hyperparameter_posterior_jax_length."""
+    _gp_posterior_concentrates(30, 30, 5)
+
+
+@pytest.mark.slow
+def test_nuts_gp_hyperparameter_posterior_jax_length():
+    """The same criterion at the JAX test's length: 200 + 300 transitions
+    at depth 8 (tests/test_inference.py:59-93)."""
+    _gp_posterior_concentrates(200, 300, 8)
 
 
 def test_advi_gaussian():
@@ -542,10 +631,7 @@ def test_diagnostics_rhat_ess():
     assert bool((diagnostics.split_rhat(bad) > 2.0).all())
 
 
-def test_sample_posterior_concentrates():
-    """The facade on the CPU (tests/test_api_extras.py:22-31), cut from
-    150 + 200 transitions at depth 6 to 30 + 30 at depth 5 (see
-    test_nuts_gp_hyperparameter_posterior)."""
+def _sample_posterior_concentrates(n_warmup, n_samples, max_depth):
     n = 8
     x = np.linspace(2.5, 7.5, n)[:, None]
     f = np.sin(x[:, 0]) + np.sin(10 * x[:, 0] / 3)
@@ -554,9 +640,10 @@ def test_sample_posterior_concentrates():
     gp.init_optz_surr(2)
     gp.set_data(x, f, np.zeros(n), g, np.zeros((n, 1)))
     gp.set_hpara("optz", 0)
-    samples, diag = gp.sample_posterior(n_chains=4, n_warmup=30,
-                                        n_samples=30, max_depth=5, seed=0)
-    assert samples.shape == (4, 30, 1)
+    samples, diag = gp.sample_posterior(n_chains=4, n_warmup=n_warmup,
+                                        n_samples=n_samples,
+                                        max_depth=max_depth, seed=0)
+    assert samples.shape == (4, n_samples, 1)
     assert set(diag) == {"logp", "accept_prob", "diverging", "n_leapfrog",
                          "step_size", "inv_mass"}
     assert all(isinstance(v, np.ndarray) for v in diag.values())
@@ -564,3 +651,18 @@ def test_sample_posterior_concentrates():
     med = float(np.median(samples[..., 0]))
     assert abs(np.log10(med) - np.log10(theta_map)) < 0.6
     assert float(np.mean(diag["diverging"])) < 0.05
+
+
+def test_sample_posterior_concentrates():
+    """The facade on the CPU (tests/test_api_extras.py:22-31), cut from
+    150 + 200 transitions at depth 6 to 30 + 30 at depth 5 (see
+    test_nuts_gp_hyperparameter_posterior); the JAX length runs in
+    test_sample_posterior_concentrates_jax_length."""
+    _sample_posterior_concentrates(30, 30, 5)
+
+
+@pytest.mark.slow
+def test_sample_posterior_concentrates_jax_length():
+    """The same criterion at the JAX test's length: 150 + 200 transitions
+    at depth 6."""
+    _sample_posterior_concentrates(150, 200, 6)
