@@ -13,6 +13,13 @@ Hessians).  The model lives on
 one torch device: ``device="cuda"`` (the default) or ``device="cpu"``.
 Without a card the facade raises unless the CPU is asked for; it never
 moves to the CPU by itself.
+
+Precision (as in the JAX package): with ``polish_cond_target`` the main
+(f32) fit is followed by a warm single-start f64 re-fit at that condition
+target, and the closed form and the predict run in f64 at it
+(``cfg_predict``); with ``n_refine_predict`` the predict factorizes in f32
+and refines every solve against the f64 covariance.  Query points are cast
+to the predict's precision, never to a lower fit precision.
 """
 
 from __future__ import annotations
@@ -33,10 +40,14 @@ from .inference.draws import Draws
 from .model import (conditioning, likelihood, likelihood_iter, mean,
                     predict, predict_iter, rescale)
 from .ops import rtensor
-from .types import (DataSpec, GpData, HpInfo, Hypers, hp_vec_to_hypers,
-                    hypers_to_hp_vec, make_data_spec)
+from .types import (DataSpec, GpData, HpInfo, Hypers, cast_float_tree,
+                    hp_vec_to_hypers, hypers_to_hp_vec, make_data_spec)
 
 _CFG_FIELDS = {f.name for f in dataclasses.fields(GpConfig)}
+
+
+def _torch_dtype(cfg: GpConfig) -> torch.dtype:
+    return torch.float64 if cfg.dtype == "float64" else torch.float32
 
 
 def _sync(device: torch.device):
@@ -132,11 +143,39 @@ class GaussianProcess:
 
     @property
     def dtype(self) -> torch.dtype:
-        return torch.float64 if self.cfg.dtype == "float64" else torch.float32
+        return _torch_dtype(self.cfg)
 
-    def _tensor(self, v):
-        return torch.as_tensor(np.asarray(v), dtype=self.dtype,
+    def _tensor(self, v, dtype=None):
+        return torch.as_tensor(np.asarray(v), dtype=dtype or self.dtype,
                                device=self.device)
+
+    @property
+    def cfg_predict(self) -> GpConfig:
+        """The config of the closed form and the predict: with the polish
+        on, f64 at ``polish_cond_target`` whatever the main fit's dtype.
+        The JAX package also turns Pallas off here; the port keeps K1/K2,
+        which compute the same function in f64."""
+        cfg = self.cfg
+        if cfg.polish_cond_target:
+            return dataclasses.replace(
+                cfg, dtype="float64", cond_max_target=cfg.polish_cond_target)
+        return cfg
+
+    @property
+    def _predict_dtype(self) -> torch.dtype:
+        """The dtype query points are cast to: the predict's own (casting
+        them to an f32 fit dtype would truncate each coordinate before the
+        f64 predict)."""
+        if self.cfg.solver == "iterative":
+            return self.dtype
+        return predict._predict_dtype(self.cfg_predict)
+
+    def _eta_for_predict(self) -> float:
+        """The predict's nugget: at the polish target when the polish is
+        on."""
+        if self.cfg.polish_cond_target:
+            return float(conditioning.calc_etaK(self.cfg_predict, self.n_eval))
+        return float(self._etaK)
 
     @property
     def b_use_cond_cstr(self):
@@ -379,9 +418,12 @@ class GaussianProcess:
             fit = self._optz_hp_rescale_loop(i_optz)
         else:
             fit = self._run_fit(i_optz)
+        if cfg.polish_cond_target:
+            fit = self._polish_fit(fit, i_optz)
         t_optz = time.time() - t0
-        hp_vals = hp_vec_to_hypers(self.hp_info_optz_lkd,
-                                   self._tensor(fit.hp_vec))
+        hp_vals = hp_vec_to_hypers(
+            self.hp_info_optz_lkd,
+            self._tensor(fit.hp_vec, _torch_dtype(self.cfg_predict)))
         hp_vals = self._closed_form(hp_vals)
         self.store_new_para_surr(i_optz, hp_vals, fit.info, float(fit.cond),
                                  t_optz, self._time_chofac_last,
@@ -405,6 +447,25 @@ class GaussianProcess:
                      hp_prev=self._prev_hp_vec())
         self.optz_infos.append(fit.info)
         return fit
+
+    def _polish_fit(self, fit, i_optz):
+        """Warm single-start f64 re-fit at ``polish_cond_target``
+        (api.py:574-592 of the JAX package): the f32 fit at its looser
+        target finds the basin, ``polish_iter_max`` f64 L-BFGS iterations
+        at the tight target finish it.  No final condition number: the
+        main fit's cond and telemetry are kept (the polish's telemetry is
+        appended to ``optz_infos``)."""
+        cfgp = dataclasses.replace(self.cfg_predict,
+                                   optz_iter_max=self.cfg.polish_iter_max)
+        fit2 = multistart.fit_map(
+            cfgp, self.spec, self.hp_info_optz_lkd,
+            cast_float_tree(self.data, torch.float64),
+            float(conditioning.calc_etaK(cfgp, self.n_eval)),
+            history=self.history, i_optz=i_optz,
+            x0_override=np.asarray(fit.hp_vec, np.float64)[None, :],
+            with_cond=False)
+        self.optz_infos.append(dict(fit2.info, polish=True))
+        return fit2._replace(cond=fit.cond, info=fit.info)
 
     def _optz_hp_rescale_loop(self, i_optz):
         """The rescale fixed-point loop (api.py:595-633 of the JAX package):
@@ -500,8 +561,14 @@ class GaussianProcess:
                     self.cfg, self.spec, self.data, hp_vals,
                     float(self._etaK), **iterative_driver.iter_kw(self.cfg))
             else:
-                lkd = likelihood.calc_lkd(self.cfg, self.spec, self.data,
-                                          hp_vals, float(self._etaK))
+                # at the predict's precision and conditioning: beta and varK
+                # feed the surrogate, so under the polish they come from
+                # the f64 covariance at the polish target
+                cfgp = self.cfg_predict
+                dt = _torch_dtype(cfgp)
+                lkd = likelihood.calc_lkd(
+                    cfgp, self.spec, cast_float_tree(self.data, dt),
+                    cast_float_tree(hp_vals, dt), self._eta_for_predict())
                 varK = (hp_vals.varK if self.spec.b_has_noisy_data
                         else lkd.varK)
                 out = hp_vals._replace(beta=lkd.beta, varK=varK)
@@ -548,8 +615,8 @@ class GaussianProcess:
             return
         with torch.no_grad():
             self._eval_state = predict.setup_eval(
-                self.cfg, self.spec, self.data, self.hp_vals,
-                float(self._etaK), calc_cond=calc_cond)
+                self.cfg_predict, self.spec, self.data, self.hp_vals,
+                self._eta_for_predict(), calc_cond=calc_cond)
         self.condK = float(self._eval_state.cond) if calc_cond else None
 
     def _check_eval_ready(self):
@@ -559,14 +626,15 @@ class GaussianProcess:
             "Cannot change hp_vals between setup_eval_model() and eval_model()"
 
     def _query(self, x2model_in, squeeze_nx):
-        """Query points (init frame, host) -> working-frame tensor."""
+        """Query points (init frame, host) -> working-frame tensor of the
+        predict's dtype."""
         self._check_eval_ready()
         xq = np.atleast_2d(np.asarray(x2model_in, float))
         if squeeze_nx:
             assert xq.shape[0] == 1
         if self.DataScl is not None:
             xq = self.DataScl.x_init_2_scl(xq)
-        return self._tensor(xq)
+        return self._tensor(xq, self._predict_dtype)
 
     def _eval_iterative(self, xq, calc_grad):
         """(mu, sig, dmudx, dsigdx) of the iterative solver at the
@@ -594,8 +662,8 @@ class GaussianProcess:
             out = (*self._eval_iterative(xq, calc_grad), None, None)
         else:
             with torch.no_grad():
-                out = predict.eval_model(self.cfg, self.spec, self.data,
-                                         self._eval_state, xq,
+                out = predict.eval_model(self.cfg_predict, self.spec,
+                                         self.data, self._eval_state, xq,
                                          calc_grad=calc_grad,
                                          calc_hess=calc_hess)
         out = [None if v is None else v.cpu().numpy() for v in out]
@@ -617,8 +685,8 @@ class GaussianProcess:
                    None)
         else:
             with torch.no_grad():
-                out = predict.eval_model_var(self.cfg, self.spec, self.data,
-                                             self._eval_state, xq,
+                out = predict.eval_model_var(self.cfg_predict, self.spec,
+                                             self.data, self._eval_state, xq,
                                              calc_grad=calc_grad,
                                              calc_hess=calc_hess)
         out = [None if v is None else v.cpu().numpy() for v in out]
@@ -645,7 +713,7 @@ class GaussianProcess:
         if self.DataScl is not None:
             raise ValueError("make_predict_fn: no rescaling frames")
         cfg, spec, data, state = self.cfg, self.spec, self.data, self._eval_state
-        dtype, device, eta = self.dtype, self.device, float(self._etaK)
+        dtype, device, eta = self._predict_dtype, self.device, float(self._etaK)
 
         def query(xq):
             return torch.atleast_2d(torch.as_tensor(xq, dtype=dtype,
@@ -665,9 +733,11 @@ class GaussianProcess:
 
             return predict_i
 
+        cfgp = self.cfg_predict
+
         def predict_d(xq):
             with torch.no_grad():
-                return predict.eval_model(cfg, spec, data, state, query(xq),
+                return predict.eval_model(cfgp, spec, data, state, query(xq),
                                           calc_grad=calc_grad,
                                           calc_hess=calc_hess)
 
@@ -696,19 +766,23 @@ class GaussianProcess:
         """Scaled-frame twin of ``calc_model_mean_w_data_init``: query points
         and data are already in the rescaling frame; mu (and dmu/dx) come
         back in the init frame.  Without a rescaling the frames coincide.
-        Uses the cached factorization's solve and the predictor's cross
-        covariance on the model's device; returns numpy arrays."""
+        Uses the cached factorization's solve (refined where the predict
+        refines) and the predictor's cross covariance on the model's
+        device, at the predict's precision; returns numpy arrays."""
         self._check_eval_ready()
-        cfg, spec, hp = self.cfg, self.spec, self.hp_vals
-        xq = self._tensor(np.atleast_2d(np.asarray(x2model_scl, float)))
+        cfg, spec, state = self.cfg_predict, self.spec, self._eval_state
+        hp, dt = state.hp, self._predict_dtype
+        x = self.data.x.to(dt)
+        xq = self._tensor(np.atleast_2d(np.asarray(x2model_scl, float)), dt)
         with torch.no_grad():
             data_vec = rtensor.make_data_vec(
-                self._tensor(np.asarray(fval_scl, float)),
-                None if grad_scl is None else self._tensor(grad_scl))
-            vand = mean.calc_aug_vand(cfg.mean_fun_type, self.data.x,
-                                      spec.use_grad, spec.idx_grad_arr)
-            sol = self._eval_state.ops.solve(data_vec - vand @ hp.beta)
-            Kyx, dKxy_dx = predict._cross_cov(cfg, spec, self.data.x, xq, hp)
+                self._tensor(np.asarray(fval_scl, float), dt),
+                None if grad_scl is None else self._tensor(grad_scl, dt))
+            vand = mean.calc_aug_vand(cfg.mean_fun_type, x, spec.use_grad,
+                                      spec.idx_grad_arr)
+            sol = predict._ops_solve(cfg, state.ops,
+                                     data_vec - vand @ hp.beta)
+            Kyx, dKxy_dx = predict._cross_cov(cfg, spec, x, xq, hp)
             mval, mgrad, _ = mean.eval_mean_fun(cfg.mean_fun_type, xq,
                                                 hp.beta)
             mu = (mval + Kyx.T @ sol).cpu().numpy()
@@ -771,7 +845,7 @@ class GaussianProcess:
         if use_mesh:
             raise NotImplementedError(
                 "sample_posterior(use_mesh=True): sharding the chains over "
-                "devices comes with ROADMAP.md Queue 1 item 12")
+                "devices comes with ROADMAP.md Queue 1 item 4")
         cfg, spec, info = self.cfg, self.spec, self.hp_info_optz_lkd
         bounds = multistart.get_hp_bounds(cfg, info, self.history, 0)
         logpost, z_to_hp, hp_to_z = nuts.make_gp_logpost(
@@ -794,14 +868,19 @@ class GaussianProcess:
         return hp_vals, {k: v.cpu().numpy() for k, v in diag.items()}
 
     # ------------------------------------------------------------------
-    # features of later slices
+    # observability (utils/info.py renders the tables)
     # ------------------------------------------------------------------
 
-    def get_txt_info_surr(self, *args, **kw):
-        raise NotImplementedError(
-            "the telemetry tables (utils/) come with ROADMAP.md Queue 1 item 11")
+    def get_txt_info_surr(self, i_max: Optional[int] = None) -> str:
+        from .utils.info import get_txt_info_surr
+        return get_txt_info_surr(self, i_max)
 
-    def plt_debug_lkd(self, *args, **kw):
-        raise NotImplementedError(
-            "the MLL contour plot (utils/) comes with ROADMAP.md Queue 1 item 11")
+    def plt_debug_lkd(self, i_optz=0, dims=(0, 1), n_grid=10, hp_x0=None,
+                      hp_optz=None, path=None, show=False):
+        """Normalized negative-MLL contours over two hyperparameters with
+        the starts and the optimum overlaid; the whole grid is one batched
+        evaluation (utils/lkd_contour.py).  Needs matplotlib."""
+        from .utils.lkd_contour import plt_debug_lkd as _plt
+        return _plt(self, i_optz=i_optz, dims=dims, n_grid=n_grid,
+                    hp_x0=hp_x0, hp_optz=hp_optz, path=path, show=show)
 

@@ -40,9 +40,10 @@ class BoTrace(NamedTuple):
 def acq_objective(gp: GaussianProcess, acq: str, beta: float, fval_best):
     """The acquisition as ``lbfgs_box_multistart``'s objective: rows X (b,
     dim) of the working frame -> (acq (b,), dacq/dx (b, dim), zeros (b,)) as
-    numpy, from one ``eval_model`` of all b rows on the model's device."""
-    cfg, spec, data, state = gp.cfg, gp.spec, gp.data, gp._eval_state
-    dtype, device = gp.dtype, gp.device
+    numpy, from one ``eval_model`` of all b rows on the model's device, at
+    the facade's predict config and precision (f64 under the polish)."""
+    cfg, spec, data, state = gp.cfg_predict, gp.spec, gp.data, gp._eval_state
+    dtype, device = gp._predict_dtype, gp.device
 
     def fun(X):
         xq = torch.as_tensor(X, dtype=dtype, device=device)
@@ -88,7 +89,7 @@ def propose_next(gp: GaussianProcess, lb, ub, fval_best,
         lb_s, ub_s, fb = lb, ub, fval_best
 
     x0 = acq_starts(gp, lb_s, ub_s, n_acq_x0, seed)
-    dt = np.float64 if gp.dtype == torch.float64 else np.float32
+    dt = np.float64 if gp._predict_dtype == torch.float64 else np.float32
     # tight tolerances: the exploitation cascade needs x resolved far
     # below the default 1e-8 projected-gradient cut
     res = lbfgs.lbfgs_box_multistart(

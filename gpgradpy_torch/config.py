@@ -2,12 +2,12 @@
 
 A copy of ``gpgradpy_tpu.config.GpConfig`` (the JAX package's option
 surface) without ``use_pallas``: the covariance takes the hand-written CUDA
-kernels whenever its tensors lie on a CUDA device, with no switch.  The
-switches of features not ported yet (``solver="dense_dist"``,
-``iter_use_mesh``, ``polish_cond_target``, ``n_refine_predict``) are
-accepted by the dataclass and refused by ``check_ported`` with a pointer to
-the ROADMAP.md item that brings them; their tuning options come with that
-item.
+kernels whenever its tensors lie on a CUDA device, with no switch, in
+float32 and float64 alike (the f64 polish re-fit too).  The switches of the
+multi-device features not ported yet (``solver="dense_dist"``,
+``iter_use_mesh``) are accepted by the dataclass and refused by
+``check_ported`` with a pointer to the ROADMAP.md item that brings them;
+their tuning options come with that item.
 """
 
 from __future__ import annotations
@@ -98,8 +98,14 @@ class GpConfig:
     b_optz_hp_kernel: bool = True
     varK_min: float = 1e-32
     dtype: str = "float64"                # 'float64' or 'float32'
-    n_refine_predict: int = 0             # mixed-precision predict (not ported)
-    polish_cond_target: float = 0.0       # f64 polish re-fit (not ported)
+    n_refine_predict: int = 0             # mixed-precision predict: assemble
+                                          # in f64, factor in f32, refine
+                                          # every predict solve this many times
+    polish_cond_target: float = 0.0       # > 0: after the main (f32) fit, a
+                                          # warm single-start f64 re-fit at
+                                          # this condition target, and the
+                                          # predict in f64 at it too
+    polish_iter_max: int = 20             # L-BFGS iterations of the polish
     pad_n_eval_multiple: int = 0          # shape bucketing: pad n_eval up to a
                                           # multiple (padded points are masked)
 
@@ -138,14 +144,10 @@ class GpConfig:
         if self.solver == "iterative" and self.iter_use_mesh:
             raise NotImplementedError(
                 "iter_use_mesh (the multi-device sharded matvec) comes with "
-                "ROADMAP.md Queue 1 item 12")
+                "ROADMAP.md Queue 1 item 4")
         if self.solver == "dense_dist":
             raise NotImplementedError(
-                "solver='dense_dist' comes with ROADMAP.md Queue 1 item 12")
-        if self.polish_cond_target or self.n_refine_predict:
-            raise NotImplementedError(
-                "polish_cond_target / n_refine_predict (f32 fit + f64 polish) "
-                "wait for an H100 measurement, ROADMAP.md Queue 1 item 13")
+                "solver='dense_dist' comes with ROADMAP.md Queue 1 item 4")
 
     # -- derived flags (same as the JAX package) --
     @property

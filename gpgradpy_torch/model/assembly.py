@@ -132,13 +132,25 @@ def _add_diag(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _factor(M: torch.Tensor, factor_dtype) -> linalg.CholFac:
+    return linalg.cholesky_ok(M if factor_dtype is None
+                              else M.to(factor_dtype))
+
+
 def assemble_keta(cfg: GpConfig, spec: DataSpec, data: GpData, hp: Hypers,
                   eta_const: float, varK: Optional[torch.Tensor] = None,
-                  Kern: Optional[torch.Tensor] = None) -> KetaOps:
+                  Kern: Optional[torch.Tensor] = None,
+                  factor_dtype: Optional[torch.dtype] = None) -> KetaOps:
     """Assemble and factorize the regularized covariance (correlation scale).
 
     ``varK`` scales the noise term only (K + diag(noise)/varK); in the
-    noise-free regime pass varK=None (varK = 1)."""
+    noise-free regime pass varK=None (varK = 1).
+
+    ``factor_dtype`` (torch.float32) factorizes a downcast copy of M and
+    keeps M itself in the assembly precision: the refined predict's mode,
+    whose solves refine against the full-precision M
+    (``predict._ops_solve``).  The low-precision Cholesky's ok flag and
+    identity fallback are those of the dense path."""
     if Kern is None:
         Kern = calc_kern(cfg, spec, data.x, hp)
     n_data = Kern.shape[-1]
@@ -166,8 +178,8 @@ def assemble_keta(cfg: GpConfig, spec: DataSpec, data: GpData, hp: Hypers,
             etaK = (torch.abs(Kcor).sum(-1).amax(-1)
                     / (cfg.cond_max_target - 1.0))
         M = _add_diag(Kcor, etaK[..., None])
-        fac = linalg.cholesky_ok(M)
-        logdet = (linalg.logdet_from_chol(fac)
+        fac = _factor(M, factor_dtype)
+        logdet = (linalg.logdet_from_chol(fac).to(dt)
                   + 2.0 * torch.log(pvec).sum(-1))
     else:
         pvec = torch.ones(Kw.shape[:-1], dtype=dt, device=dev)
@@ -177,8 +189,8 @@ def assemble_keta(cfg: GpConfig, spec: DataSpec, data: GpData, hp: Hypers,
             etaK = (torch.abs(Kern).sum(-1).amax(-1)
                     / (cfg.cond_max_target - 1.0))
         M = _add_diag(Kw, etaK[..., None])
-        fac = linalg.cholesky_ok(M)
-        logdet = linalg.logdet_from_chol(fac)
+        fac = _factor(M, factor_dtype)
+        logdet = linalg.logdet_from_chol(fac).to(dt)
 
     if pad_mask is not None:
         # padded diagonal entries contribute log(1 + eta) each; remove them

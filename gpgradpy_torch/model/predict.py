@@ -1,6 +1,12 @@
 """Posterior prediction: mean, standard deviation and their first and
 second derivatives at query points (counterpart of
 ``gpgradpy_tpu/model/predict.py``), for one hyperparameter row.
+
+Precision: the predict runs in ``_predict_dtype(cfg)``.  With
+``cfg.dtype == 'float64'`` f32 inputs are promoted (the polish mode, whose
+main fit ran in f32); with ``cfg.n_refine_predict`` the covariance is
+assembled in f64 and factorized in f32, and every predict solve refines
+against the f64 matrix (``_ops_solve``).
 """
 
 from __future__ import annotations
@@ -10,8 +16,8 @@ from typing import NamedTuple
 import torch
 
 from ..config import GpConfig
-from ..ops import kernels, rtensor
-from ..types import DataSpec, GpData, Hypers
+from ..ops import kernels, linalg, rtensor
+from ..types import DataSpec, GpData, Hypers, cast_float_tree
 from . import assembly, likelihood, mean
 
 
@@ -23,11 +29,38 @@ class EvalState(NamedTuple):
     cond: torch.Tensor
 
 
+def _predict_dtype(cfg: GpConfig) -> torch.dtype:
+    """f64 when the config says so or when the refined predict is on."""
+    if cfg.dtype == "float64" or cfg.n_refine_predict:
+        return torch.float64
+    return torch.float32
+
+
+def _ops_solve(cfg: GpConfig, ops: assembly.KetaOps,
+               b: torch.Tensor) -> torch.Tensor:
+    """Keta^-1 b for b (n,) or (n, k); with iterative refinement against
+    the full-precision M when the factor was taken in a lower precision
+    (cfg.n_refine_predict > 0)."""
+    if cfg.n_refine_predict and ops.fac.L.dtype != ops.M.dtype:
+        vec = b.ndim == ops.pvec.ndim
+        rhs = b[..., None] if vec else b
+        p = ops.pvec[..., :, None]
+        y = linalg.refine_solve(ops.fac, ops.M, rhs / p,
+                                cfg.n_refine_predict) / p
+        return y[..., 0] if vec else y
+    return ops.solve(b)
+
+
 def setup_eval(cfg: GpConfig, spec: DataSpec, data: GpData, hp: Hypers,
                eta_const: float, calc_cond: bool = False) -> EvalState:
-    """Factorize the varK-normalized covariance and cache Keta^-1 (y - m)."""
-    ops = assembly.assemble_keta(cfg, spec, data, hp, eta_const,
-                                 varK=hp.varK if spec.b_has_noisy_data else None)
+    """Factorize the varK-normalized covariance and cache Keta^-1 (y - m),
+    in the predict precision (the module note)."""
+    dt = _predict_dtype(cfg)
+    data, hp = cast_float_tree(data, dt), cast_float_tree(hp, dt)
+    ops = assembly.assemble_keta(
+        cfg, spec, data, hp, eta_const,
+        varK=hp.varK if spec.b_has_noisy_data else None,
+        factor_dtype=torch.float32 if cfg.n_refine_predict else None)
     data_vec = likelihood.make_data_vec(spec, data)
     vand = mean.calc_aug_vand(cfg.mean_fun_type, data.x, spec.use_grad,
                               spec.idx_grad_arr)
@@ -36,7 +69,7 @@ def setup_eval(cfg: GpConfig, spec: DataSpec, data: GpData, hp: Hypers,
         mv = torch.as_tensor(pad_mask, dtype=vand.dtype, device=vand.device)
         vand = vand * mv[:, None]
         data_vec = data_vec * mv
-    invK_fdiff = ops.solve(data_vec - vand @ hp.beta)
+    invK_fdiff = _ops_solve(cfg, ops, data_vec - vand @ hp.beta)
     cond = (assembly.calc_cond(ops, cfg.cond_norm) if calc_cond
             else torch.tensor(float("nan")))
     return EvalState(ops=ops, invK_fdiff=invK_fdiff, hp=hp, cond=cond)
@@ -84,7 +117,7 @@ def _hess_terms(cfg, spec, data, state, xq, Kxy_invK, dKxy_dx):
                             use_grad=spec.use_grad, idx_g2=spec.idx_grad_arr)
     Ht = H.reshape(dim, dim, nx, N)
     term1 = torch.einsum("kiqm,qm->qki", Ht, Kxy_invK)
-    solve_dK = state.ops.solve(dKxy_dx.T)                  # (n_data, nx*d)
+    solve_dK = _ops_solve(cfg, state.ops, dKxy_dx.T)       # (n_data, nx*d)
     D = dKxy_dx.reshape(dim, nx, N)
     S = solve_dK.T.reshape(dim, nx, N)
     term2h = torch.einsum("kqm,iqm->qki", D, S)
@@ -98,11 +131,13 @@ def eval_model(cfg: GpConfig, spec: DataSpec, data: GpData, state: EvalState,
     points xq (nx, dim); derivative outputs are None unless requested."""
     hp = state.hp
     nx, dim = xq.shape
+    dt = _predict_dtype(cfg)
+    data, xq = cast_float_tree(data, dt), xq.to(dt)
     varK = hp.varK
     sigK = torch.sqrt(varK)
 
     Kyx, dKxy_dx = _cross_cov(cfg, spec, data.x, xq, hp)
-    Kxy_invK = state.ops.solve(Kyx).T                     # (nx, n_data)
+    Kxy_invK = _ops_solve(cfg, state.ops, Kyx).T          # (nx, n_data)
     mval, mgrad, mhess = mean.eval_mean_fun(cfg.mean_fun_type, xq, hp.beta)
 
     mu = mval + Kyx.T @ state.invK_fdiff
@@ -137,10 +172,12 @@ def eval_model_var(cfg: GpConfig, spec: DataSpec, data: GpData,
     """Variance (not std) and its derivatives."""
     hp = state.hp
     nx, dim = xq.shape
+    dt = _predict_dtype(cfg)
+    data, xq = cast_float_tree(data, dt), xq.to(dt)
     varK = hp.varK
 
     Kyx, dKxy_dx = _cross_cov(cfg, spec, data.x, xq, hp)
-    Kxy_invK = state.ops.solve(Kyx).T
+    Kxy_invK = _ops_solve(cfg, state.ops, Kyx).T
     sig2 = varK * torch.clamp_min(1.0 - torch.sum(Kyx.T * Kxy_invK, dim=1), 0.0)
 
     dsig2dx = d2sig2dx2 = None

@@ -78,6 +78,13 @@ def theta2gamma(kernel_type: str, theta):
     return torch.sqrt(2.0 * theta)
 
 
+def gamma2theta(kernel_type: str, gamma):
+    """Inverse of ``theta2gamma``."""
+    if kernel_type == "Ma5f2":
+        return (3.0 / 5.0) * gamma ** 2
+    return 0.5 * gamma ** 2
+
+
 def weighted_sqdist(R, theta):
     """W[..., i, j] = sum_d theta[..., d] R[d, i, j]**2."""
     return torch.einsum("...d,dij->...ij", theta, R * R)
@@ -188,3 +195,12 @@ def kern_hess_x(kernel_type: str, R, theta, alpha=None, use_grad: bool = True,
     n2g = grad_cols.shape[-1]
     grad_cols = grad_cols.permute(0, 1, 3, 2, 4).reshape(dim, dim * n1, dim * n2g)
     return torch.cat([val_cols, grad_cols], dim=2)
+
+
+def scalar_kernel(kernel_type: str, x1, x2, theta, alpha=None):
+    """k(x1, x2) as a scalar function of two points (d,): the autograd
+    oracle (``torch.func.grad`` / ``hessian``) that the closed-form blocks
+    are held against, and the examples' kernel correlations."""
+    r = x1 - x2
+    phi, *_ = PHI[kernel_type](torch.sum(theta * r * r), alpha)
+    return phi

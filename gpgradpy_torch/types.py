@@ -220,3 +220,16 @@ def hypers_to_hp_vec(info: HpInfo, hp: Hypers) -> torch.Tensor:
     vec = torch.cat([torch.as_tensor(p) for p in parts], dim=-1)
     bvec = torch.as_tensor(info.bvec_log, device=vec.device)
     return torch.where(bvec, torch.log10(vec), vec)
+
+
+def cast_float_tree(tree, dt: torch.dtype):
+    """Cast every floating-point tensor of ``tree`` (a tensor, None, or a
+    NamedTuple such as GpData / Hypers, nested) to ``dt``; other leaves
+    pass through.  The polish and refined-predict paths promote the f32
+    data and hyperparameters of the main fit with it (types.py:253 of the
+    JAX package)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dt) if tree.is_floating_point() else tree
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(cast_float_tree(v, dt) for v in tree))
+    return tree

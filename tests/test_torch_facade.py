@@ -73,14 +73,15 @@ def test_facade_needs_a_card_or_an_explicit_cpu():
 
 @pytest.mark.parametrize("option", [
     dict(solver="iterative", iter_use_mesh=True), dict(solver="dense_dist"),
-    dict(polish_cond_target=1e10), dict(n_refine_predict=2)])
+    dict(solver="dense_dist", wellcond_mtd="base"),
+    dict(solver="iterative", iter_use_mesh=True, wellcond_mtd="base")])
 def test_options_of_later_slices_raise(option):
     kw = dict(option)
     wellcond = kw.pop("wellcond_mtd", "precon")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         GaussianProcess(2, True, "SqExp", wellcond, device="cpu", **kw)
     gp = GaussianProcess(2, True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 4"):
         gp.sample_posterior(use_mesh=True)
 
 

@@ -480,7 +480,7 @@ def test_iterative_refusals():
     """What the iterative solver does not run raises, naming its ROADMAP
     item or the JAX package's message: the sharded matvec, a fitted RatQu
     alpha, Hessians, and polish; padding is not applied."""
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         GaussianProcess(2, True, solver="iterative", iter_use_mesh=True,
                         device="cpu")
     with pytest.raises(AssertionError, match="polish_cond_target"):
