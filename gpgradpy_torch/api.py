@@ -9,10 +9,20 @@ constraint, the rescaling methods in their scaled frame and, for
 'rescale_*', inside the rescale fixed-point loop.  With
 ``solver="iterative"`` every method fits and predicts through the
 matrix-free CG + SLQ likelihood instead (no condition number, no
-Hessians).  The model lives on
-one torch device: ``device="cuda"`` (the default) or ``device="cpu"``.
-Without a card the facade raises unless the CPU is asked for; it never
-moves to the CPU by itself.
+Hessians); with ``iter_use_mesh`` its matvec rows are split over the ranks
+of a ``torch.distributed`` process group.  ``solver="dense_dist"`` fits
+'precon' with the fit's Cholesky distributed over those ranks, and
+``sample_posterior(use_mesh=True)`` splits the chains over them
+(``parallel/``; a group of one rank on the model's device where none is
+initialized).  That group is the process's default group and is never
+destroyed here: a later mesh path on the other device type (cpu after
+cuda, or the reverse) raises until the caller runs
+``torch.distributed.destroy_process_group()``, and its ``file://`` store
+stays under ``build/gpgradpy_torch/``.  The model lives on one torch
+device per rank:
+``device="cuda"`` (the default) or ``device="cpu"``.  Without a card the
+facade raises unless the CPU is asked for; it never moves to the CPU by
+itself.
 
 Precision (as in the JAX package): with ``polish_cond_target`` the main
 (f32) fit is followed by a warm single-start f64 re-fit at that condition
@@ -33,13 +43,14 @@ import torch
 
 from . import convert
 from .config import GpConfig
-from .fit import iterative_driver, multistart, scipy_driver
+from .fit import dense_dist_driver, iterative_driver, multistart, scipy_driver
 from .fit.history import FitHistory
 from .inference import nuts
 from .inference.draws import Draws
 from .model import (conditioning, likelihood, likelihood_iter, mean,
                     predict, predict_iter, rescale)
 from .ops import rtensor
+from .parallel import mesh as pmesh
 from .types import (DataSpec, GpData, HpInfo, Hypers, cast_float_tree,
                     hp_vec_to_hypers, hypers_to_hp_vec, make_data_spec)
 
@@ -110,6 +121,7 @@ class GaussianProcess:
         self._time_chofac = 0.0
         self._time_chofac_last = np.nan
         self._fit_seed = 1
+        self._iter_mesh_cache = None
 
     # ------------------------------------------------------------------
     # config plumbing: option surface as mutable attributes
@@ -137,7 +149,6 @@ class GaussianProcess:
                 if rng in ov:
                     ov[rng] = tuple(ov[rng])
             cfg = GpConfig(**ov)
-            cfg.check_ported()
             object.__setattr__(self, "_cfg_cache", cfg)
         return self._cfg_cache
 
@@ -232,6 +243,19 @@ class GaussianProcess:
         # the iterative path keeps its own full layout: no shape bucketing
         if cfg.pad_n_eval_multiple > 1 and cfg.solver != "iterative":
             n_pad = (-n_eval) % cfg.pad_n_eval_multiple
+        if cfg.solver == "dense_dist":
+            # pad n_data_tot onto the world_size * dist_chol_block grid of
+            # the distributed Cholesky: a padding point adds one identity
+            # row (a value row, no gradient rows), masked like bucket
+            # padding, on top of any bucket padding (api.py:281-296 of the
+            # JAX package, whose grid is the device count's)
+            if bvec_use_grad is None:
+                n_grad_rows = cfg.dim * n_eval if cfg.use_grad else 0
+            else:
+                n_grad_rows = cfg.dim * int(
+                    np.count_nonzero(np.asarray(bvec_use_grad)))
+            grid = self._iter_mesh().size * cfg.dist_chol_block
+            n_pad += (-(n_eval + n_grad_rows + n_pad)) % grid
         self.spec = make_data_spec(cfg.dim, cfg.use_grad, n_eval,
                                    std_fval=self._std_fval_in,
                                    std_grad=self._std_grad_in,
@@ -429,13 +453,37 @@ class GaussianProcess:
                                  t_optz, self._time_chofac_last,
                                  ln_lkd=-float(fit.neg_lkd))
 
+    def _iter_mesh(self):
+        """The mesh of the sharded matvec and the distributed Cholesky (or
+        None): every rank of the process group, on the model's device,
+        made once per facade."""
+        if not (self.cfg.iter_use_mesh or self.cfg.solver == "dense_dist"):
+            return None
+        if self._iter_mesh_cache is None:
+            self._iter_mesh_cache = pmesh.make_mesh(device=self.device)
+        return self._iter_mesh_cache
+
+    def _iter_kw(self) -> dict:
+        """The iterative solver's options and mesh."""
+        return dict(iterative_driver.iter_kw(self.cfg),
+                    mesh=self._iter_mesh())
+
     def _run_fit(self, i_optz, x0_override=None):
         cfg = self.cfg
         if cfg.solver == "iterative":
             fit = iterative_driver.fit_map_iterative(
                 cfg, self.spec, self.hp_info_optz_lkd, self.data,
                 float(self._etaK), history=self.history, i_optz=i_optz,
-                seed=self._fit_seed, x0_override=x0_override)
+                seed=self._fit_seed, x0_override=x0_override,
+                mesh=self._iter_mesh())
+            self.optz_infos.append(fit.info)
+            return fit
+        if cfg.solver == "dense_dist":
+            fit = dense_dist_driver.fit_map_dense_dist(
+                cfg, self.spec, self.hp_info_optz_lkd, self.data,
+                float(self._etaK), history=self.history, i_optz=i_optz,
+                seed=self._fit_seed, x0_override=x0_override,
+                mesh=self._iter_mesh(), hp_prev=self._prev_hp_vec())
             self.optz_infos.append(fit.info)
             return fit
         use_scipy = (cfg.optz_mtd in ("slsqp", "SLSQP", "trust-constr")
@@ -559,7 +607,7 @@ class GaussianProcess:
             if self.cfg.solver == "iterative":
                 out = likelihood_iter.closed_form_iterative(
                     self.cfg, self.spec, self.data, hp_vals,
-                    float(self._etaK), **iterative_driver.iter_kw(self.cfg))
+                    float(self._etaK), **self._iter_kw())
             else:
                 # at the predict's precision and conditioning: beta and varK
                 # feed the surrogate, so under the polish they come from
@@ -610,7 +658,7 @@ class GaussianProcess:
             with torch.no_grad():
                 self._eval_state = predict_iter.setup_eval_iterative(
                     self.cfg, self.spec, self.data, self.hp_vals,
-                    float(self._etaK), **iterative_driver.iter_kw(self.cfg))
+                    float(self._etaK), **self._iter_kw())
             self.condK = None
             return
         with torch.no_grad():
@@ -643,7 +691,7 @@ class GaussianProcess:
             return predict_iter.eval_model_iterative(
                 self.cfg, self.spec, self.data, self._eval_state,
                 float(self._etaK), xq, calc_sig=True, calc_grad=calc_grad,
-                **iterative_driver.iter_kw(self.cfg))
+                **self._iter_kw())
 
     @staticmethod
     def _squeeze(vals, squeeze_nx):
@@ -722,7 +770,7 @@ class GaussianProcess:
         if cfg.solver == "iterative":
             if calc_hess:
                 raise NotImplementedError(_NO_HESS)
-            kw = iterative_driver.iter_kw(cfg)
+            kw = self._iter_kw()
 
             def predict_i(xq):
                 with torch.no_grad():
@@ -831,21 +879,11 @@ class GaussianProcess:
     # Bayesian hyperparameter posteriors
     # ------------------------------------------------------------------
 
-    def sample_posterior(self, n_chains: int = 8, n_warmup: int = 400,
-                         n_samples: int = 400, max_depth: int = 8,
-                         seed: int = 0, use_mesh: bool = False):
-        """NUTS posterior over the numerically optimized hyperparameters
-        (box-uniform prior on the optimization-space vector within the
-        current bounds), all chains batched on the model's device with
-        per-chain adaptation.  The chains start at the current
-        hyperparameters (or zeros in z) plus 0.1 x normal jitter; every draw
-        comes from counter-based streams seeded with ``seed``.  Returns
-        (hp_samples (chains, samples, n_hp) in VALUE space, diagnostics dict
-        of numpy arrays)."""
-        if use_mesh:
-            raise NotImplementedError(
-                "sample_posterior(use_mesh=True): sharding the chains over "
-                "devices comes with ROADMAP.md Queue 1 item 4")
+    def _posterior_setup(self, n_chains: int, seed: int):
+        """The NUTS target and the chains' starts of ``sample_posterior``:
+        (logpost, z_to_hp, z0 (n_chains, n_hp)).  The starts are the
+        current hyperparameters (or zeros in z) plus 0.1 x normal jitter,
+        drawn for all chains from the shared stream of ``Draws(seed)``."""
         cfg, spec, info = self.cfg, self.spec, self.hp_info_optz_lkd
         bounds = multistart.get_hp_bounds(cfg, info, self.history, 0)
         logpost, z_to_hp, hp_to_z = nuts.make_gp_logpost(
@@ -857,13 +895,33 @@ class GaussianProcess:
         else:
             z_init = torch.zeros(info.n_hp, dtype=self.dtype,
                                  device=self.device)
-        draws = Draws(seed, self.device)
-        z0 = z_init[None, :] + 0.1 * draws.normal((n_chains, info.n_hp),
-                                                  self.dtype)
-        zs, diag = nuts.run_nuts(logpost, z0, draws, n_warmup=n_warmup,
-                                 n_samples=n_samples, max_depth=max_depth)
+        z0 = z_init[None, :] + 0.1 * Draws(seed, self.device).normal(
+            (n_chains, info.n_hp), self.dtype)
+        return logpost, z_to_hp, z0
+
+    def sample_posterior(self, n_chains: int = 8, n_warmup: int = 400,
+                         n_samples: int = 400, max_depth: int = 8,
+                         seed: int = 0, use_mesh: bool = False):
+        """NUTS posterior over the numerically optimized hyperparameters
+        (box-uniform prior on the optimization-space vector within the
+        current bounds), all chains batched on the model's device with
+        per-chain adaptation.  Every draw comes from counter-based streams
+        seeded with ``seed``, one per chain.  With ``use_mesh`` the chains
+        are split over the ranks of the process group
+        (``parallel.mesh.run_nuts_sharded``; n_chains divisible by the world
+        size) and adapt on statistics pooled over all chains, as in the JAX
+        package.  Returns (hp_samples (chains, samples, n_hp) in VALUE
+        space, diagnostics dict of numpy arrays), the same on every rank."""
+        logpost, z_to_hp, z0 = self._posterior_setup(n_chains, seed)
+        kw = dict(n_warmup=n_warmup, n_samples=n_samples, max_depth=max_depth)
+        if use_mesh:
+            zs, diag = pmesh.run_nuts_sharded(
+                logpost, z0, seed, pmesh.make_mesh(device=self.device), **kw)
+        else:
+            zs, diag = nuts.run_nuts(logpost, z0, Draws(seed, self.device),
+                                     **kw)
         hp_vals = z_to_hp(zs).cpu().numpy()
-        bvec = info.bvec_log
+        bvec = self.hp_info_optz_lkd.bvec_log
         hp_vals[..., bvec] = 10.0 ** hp_vals[..., bvec]
         return hp_vals, {k: v.cpu().numpy() for k, v in diag.items()}
 

@@ -3,11 +3,11 @@
 A copy of ``gpgradpy_tpu.config.GpConfig`` (the JAX package's option
 surface) without ``use_pallas``: the covariance takes the hand-written CUDA
 kernels whenever its tensors lie on a CUDA device, with no switch, in
-float32 and float64 alike (the f64 polish re-fit too).  The switches of the
-multi-device features not ported yet (``solver="dense_dist"``,
-``iter_use_mesh``) are accepted by the dataclass and refused by
-``check_ported`` with a pointer to the ROADMAP.md item that brings them;
-their tuning options come with that item.
+float32 and float64 alike (the f64 polish re-fit too).  The multi-device
+options (``solver="dense_dist"`` with ``dist_chol_block``,
+``iter_use_mesh``) run over the ranks of a ``torch.distributed`` process
+group (``parallel/``), where the JAX package runs over the devices of a
+``jax.sharding.Mesh``.
 """
 
 from __future__ import annotations
@@ -112,14 +112,22 @@ class GpConfig:
     # --- large-n iterative solver (model/likelihood_iter.py) ---
     solver: str = "dense"                 # 'dense' (Cholesky), 'iterative'
                                           # (matrix-free CG + SLQ) or
-                                          # 'dense_dist' (not ported)
+                                          # 'dense_dist' (the fit's Cholesky
+                                          # distributed over the ranks,
+                                          # fit/dense_dist_driver.py)
     iter_n_probes: int = 16               # Hutchinson / SLQ probe vectors
     iter_max_cg: int = 1024               # CG iteration cap (~sqrt(cond)
                                           # with the diagonal preconditioner)
     iter_cg_tol: float = 1e-10            # CG relative-residual tolerance
     iter_row_block: int = 256             # covariance row-tile height (points)
     iter_n_x0: int = 2                    # multistarts of the iterative fit
-    iter_use_mesh: bool = False           # sharded matvec (not ported)
+    iter_use_mesh: bool = False           # shard the matvec's rows over the
+                                          # ranks of the process group (the
+                                          # world size must divide n_eval)
+    dist_chol_block: int = 64             # block of the distributed Cholesky
+                                          # of 'dense_dist'; set_data pads
+                                          # n_data onto a multiple of
+                                          # world size * block
 
     def __post_init__(self):
         assert self.kernel_type in KERNEL_TYPES, f"unknown kernel {self.kernel_type}"
@@ -138,16 +146,6 @@ class GpConfig:
         assert self.dtype in ("float64", "float32"), f"unknown dtype {self.dtype}"
         if self.wellcond_mtd == "rescale_eta_vary":
             object.__setattr__(self, "cond_eta_is_const", False)
-
-    def check_ported(self):
-        """Raise NotImplementedError for options this port does not run yet."""
-        if self.solver == "iterative" and self.iter_use_mesh:
-            raise NotImplementedError(
-                "iter_use_mesh (the multi-device sharded matvec) comes with "
-                "ROADMAP.md Queue 1 item 4")
-        if self.solver == "dense_dist":
-            raise NotImplementedError(
-                "solver='dense_dist' comes with ROADMAP.md Queue 1 item 4")
 
     # -- derived flags (same as the JAX package) --
     @property

@@ -12,7 +12,9 @@ function of the hyperparameters: an (n_full, iter_n_probes) Rademacher
 matrix from a CPU ``torch.Generator`` seeded with ``seed + 7 * i_optz`` (the
 seed of the JAX package's key), moved to the model's device, so a card fit
 and a CPU fit see the same probes.  ``probes=`` overrides it (the tests hand
-in the JAX package's).
+in the JAX package's).  With ``mesh`` the probes are in the point-major
+working layout of the sharded matvec, as the JAX package draws them there,
+and every rank draws the same ones.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ def iter_kw(cfg: GpConfig) -> dict:
 def fit_map_iterative(cfg: GpConfig, spec: DataSpec, info: HpInfo,
                       data: GpData, eta_const: float, history=None,
                       i_optz: int = 0, seed: int = 1, x0_override=None,
-                      probes=None, **_ignored) -> FitResult:
+                      probes=None, mesh=None, **_ignored) -> FitResult:
     """Large-n MAP fit: LHS starts around the median of recent
     hyperparameters -> L-BFGS through the CG/SLQ MLL -> FitResult.  No
     condition number is computed (there is no factorization): cond is NaN
@@ -74,7 +76,7 @@ def fit_map_iterative(cfg: GpConfig, spec: DataSpec, info: HpInfo,
                                  dt, dev)
     else:
         z = torch.as_tensor(np.array(probes), dtype=dt, device=dev)
-    kw = iter_kw(cfg)
+    kw = dict(iter_kw(cfg), mesh=mesh)
     noisy = spec.b_has_noisy_data
     n_val = [0]
 

@@ -126,6 +126,20 @@ def lkd_cond_at(cfg: GpConfig, spec: DataSpec, info: HpInfo, data: GpData,
                                           calc_cond=True)
 
 
+def neg_mll_objective(cfg: GpConfig, spec: DataSpec, info: HpInfo,
+                      data: GpData, eta_const: float):
+    """The L-BFGS objective of the fit: rows X (b, n_hp) on the host ->
+    (-ln L (b,), its gradient (b, n_hp), aux (b,)), one batched evaluation;
+    aux is 1 where the Cholesky failed and the restoring surrogate fired."""
+    def obj(X):
+        val, g, lkd = likelihood.neg_mll_and_grad(cfg, spec, info, data,
+                                                  hp_rows(cfg, data, X),
+                                                  eta_const)
+        return (val.cpu().numpy(), g.cpu().numpy(),
+                (~lkd.ok).to(val.dtype).cpu().numpy())
+    return obj
+
+
 def fit_map(cfg: GpConfig, spec: DataSpec, info: HpInfo, data: GpData,
             eta_const: float, history=None, i_optz: int = 0,
             seed: int = 1, x0_override=None, with_cond: bool = True,
@@ -173,14 +187,7 @@ def fit_map(cfg: GpConfig, spec: DataSpec, info: HpInfo, data: GpData,
     init_cond = (float(cond_at(starts).max()) if with_cond
                  else float("nan"))
 
-    def obj(X):
-        val, g, lkd = likelihood.neg_mll_and_grad(cfg, spec, info, data,
-                                                  hp_rows(cfg, data, X),
-                                                  eta_const)
-        # aux: 1 where the Cholesky failed and the restoring surrogate fired
-        return (val.cpu().numpy(), g.cpu().numpy(),
-                (~lkd.ok).to(val.dtype).cpu().numpy())
-
+    obj = neg_mll_objective(cfg, spec, info, data, eta_const)
     res = lbfgs.lbfgs_box_multistart(obj, starts, bounds.box_lb.astype(np_dt),
                                      bounds.box_ub.astype(np_dt),
                                      max_iter=cfg.optz_iter_max,

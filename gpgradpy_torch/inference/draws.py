@@ -18,8 +18,12 @@ The default stream is counter-based: every number is a hash (splitmix64)
 of (seed, stream, site, counter, element), made on the host in numpy and
 copied to the model's device, so a card run and a CPU run with the same
 seed see the same numbers.  The NUTS sites give each chain its own stream,
-as the JAX package gives each chain its own key: the stream is the chain
-index and the counter is that chain's own count of draws at the site.  A
+as the JAX package gives each chain its own key: the stream is the chain's
+global index (``chain_offset``, the global index of the first chain this
+object draws for, plus its index in the local batch) and the counter is
+that chain's own count of draws at the site.  When the chains are split
+over ranks (``parallel/mesh.run_nuts_sharded``), each rank's ``Draws``
+starts at its first chain's global index, so no two ranks share a stream.  A
 site is handed the host mask of the chains that consume its draw (the
 chains still building their tree); it returns a draw for every chain, and
 only the consuming chains' counters advance.  So a chain's draws depend on
@@ -83,11 +87,13 @@ def _normal(bits: np.ndarray) -> np.ndarray:
 class Draws:
     """Counter-based streams of random draws from ``seed``, delivered on
     ``device``.  ``counts`` (chains, sites) holds the per-chain counters of
-    the NUTS sites; row 0 also counts the calls of the other sites."""
+    the NUTS sites; row 0 also counts the calls of the other sites.  The
+    local chain i draws from the stream ``chain_offset + i``."""
 
-    def __init__(self, seed: int = 0, device="cpu"):
+    def __init__(self, seed: int = 0, device="cpu", chain_offset: int = 0):
         self.seed = int(seed)
         self.device = torch.device(device)
+        self.chain_offset = int(chain_offset)
         self.counts = np.zeros((0, len(_SITES)), np.uint64)
 
     def _to_device(self, a: np.ndarray, dtype) -> torch.Tensor:
@@ -109,8 +115,8 @@ class Draws:
         B = consume.size
         self._rows(B)
         col = _COL[site]
-        bits = _bits(self.seed, np.arange(B), site, self.counts[:B, col],
-                     n_elem)
+        bits = _bits(self.seed, self.chain_offset + np.arange(B), site,
+                     self.counts[:B, col], n_elem)
         self.counts[:B, col] += consume.astype(np.uint64)
         return bits
 

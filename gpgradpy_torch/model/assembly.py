@@ -111,15 +111,35 @@ def calc_noise_vec(spec: DataSpec, data: GpData, hp: Hypers) -> torch.Tensor:
                      dim=-1)
 
 
+def compact_rows(n: int, dim: int, n_grad: int, device) -> torch.Tensor:
+    """The rows of the compact gradient-enhanced layout (the values of all
+    n points, then the gradients of the first ``n_grad`` points, grouped by
+    dim) in the full blocked layout of all n points; built on ``device``
+    from ranges, so no host data is copied."""
+    grads = (n * torch.arange(1, dim + 1, device=device)[:, None]
+             + torch.arange(n_grad, device=device))
+    return torch.cat([torch.arange(n, device=device), grads.reshape(-1)])
+
+
 def calc_kern(cfg: GpConfig, spec: DataSpec, x: torch.Tensor, hp: Hypers):
     """The (gradient-enhanced) kernel matrix of the training inputs.
 
-    On a CUDA device with the full gradient set the CUDA kernels K1/K2 build
-    it (``KernGradFn``), whatever the size and dtype; CPU tensors and
-    partial gradient sets take the plain closed form."""
+    On a CUDA device the CUDA kernels K1/K2 build it (``KernGradFn``),
+    whatever the size and dtype, when every real point carries gradients:
+    the padding points of ``pad_n_eval_multiple`` and of
+    ``solver="dense_dist"`` carry none, so their rows and columns are taken
+    out of K1's full matrix (a few points more than the compact one), and
+    K2's cotangent is the compact one scattered back.  CPU tensors and a
+    partial gradient set (``idx_grad``, whose full matrix may be many times
+    the compact one) take the plain closed form."""
     idx = spec.idx_grad_arr
-    if x.is_cuda and cfg.use_grad and idx is None:
-        return KernGradFn.apply(cfg.kernel_type, x, hp.theta, hp.kernel)
+    if x.is_cuda and cfg.use_grad and (idx is None
+                                       or spec.n_grad == spec.n_eval):
+        K = KernGradFn.apply(cfg.kernel_type, x, hp.theta, hp.kernel)
+        if idx is None:
+            return K
+        rows = compact_rows(x.shape[0], x.shape[1], spec.n_eval, x.device)
+        return K.index_select(-2, rows).index_select(-1, rows)
     R = rtensor.calc_rtensor(x, x)
     return kernels.kern_mat(cfg.kernel_type, R, hp.theta, hp.kernel,
                             use_grad=cfg.use_grad, idx_g1=idx, idx_g2=idx)
@@ -132,15 +152,19 @@ def _add_diag(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _factor(M: torch.Tensor, factor_dtype) -> linalg.CholFac:
-    return linalg.cholesky_ok(M if factor_dtype is None
-                              else M.to(factor_dtype))
+def _factor(M: torch.Tensor, factor_dtype, mesh=None,
+            block: int = 64) -> linalg.CholFac:
+    M = M if factor_dtype is None else M.to(factor_dtype)
+    if mesh is not None:
+        return linalg.cholesky_ok_dist(M, mesh, block)
+    return linalg.cholesky_ok(M)
 
 
 def assemble_keta(cfg: GpConfig, spec: DataSpec, data: GpData, hp: Hypers,
                   eta_const: float, varK: Optional[torch.Tensor] = None,
                   Kern: Optional[torch.Tensor] = None,
-                  factor_dtype: Optional[torch.dtype] = None) -> KetaOps:
+                  factor_dtype: Optional[torch.dtype] = None,
+                  mesh=None) -> KetaOps:
     """Assemble and factorize the regularized covariance (correlation scale).
 
     ``varK`` scales the noise term only (K + diag(noise)/varK); in the
@@ -150,7 +174,12 @@ def assemble_keta(cfg: GpConfig, spec: DataSpec, data: GpData, hp: Hypers,
     keeps M itself in the assembly precision: the refined predict's mode,
     whose solves refine against the full-precision M
     (``predict._ops_solve``).  The low-precision Cholesky's ok flag and
-    identity fallback are those of the dense path."""
+    identity fallback are those of the dense path.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``) factors M with the distributed
+    blocked Cholesky (``linalg.cholesky_ok_dist``, block
+    ``cfg.dist_chol_block``): ``solver="dense_dist"``.  One matrix, no
+    batch; n_data must be a multiple of mesh.size * dist_chol_block."""
     if Kern is None:
         Kern = calc_kern(cfg, spec, data.x, hp)
     n_data = Kern.shape[-1]
@@ -178,7 +207,7 @@ def assemble_keta(cfg: GpConfig, spec: DataSpec, data: GpData, hp: Hypers,
             etaK = (torch.abs(Kcor).sum(-1).amax(-1)
                     / (cfg.cond_max_target - 1.0))
         M = _add_diag(Kcor, etaK[..., None])
-        fac = _factor(M, factor_dtype)
+        fac = _factor(M, factor_dtype, mesh, cfg.dist_chol_block)
         logdet = (linalg.logdet_from_chol(fac).to(dt)
                   + 2.0 * torch.log(pvec).sum(-1))
     else:
@@ -189,7 +218,7 @@ def assemble_keta(cfg: GpConfig, spec: DataSpec, data: GpData, hp: Hypers,
             etaK = (torch.abs(Kern).sum(-1).amax(-1)
                     / (cfg.cond_max_target - 1.0))
         M = _add_diag(Kw, etaK[..., None])
-        fac = _factor(M, factor_dtype)
+        fac = _factor(M, factor_dtype, mesh, cfg.dist_chol_block)
         logdet = linalg.logdet_from_chol(fac).to(dt)
 
     if pad_mask is not None:

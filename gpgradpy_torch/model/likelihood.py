@@ -50,9 +50,11 @@ def _varK_penalty(cfg: GpConfig, varK, fval):
 
 
 def calc_lkd(cfg: GpConfig, spec: DataSpec, data: GpData, hp: Hypers,
-             eta_const: float, calc_cond: bool = False) -> LkdInfo:
+             eta_const: float, calc_cond: bool = False, mesh=None) -> LkdInfo:
     """MLL and closed-form hyperparameters, differentiable in (theta,
-    kernel, varK, var_fval, var_fgrad)."""
+    kernel, varK, var_fval, var_fgrad).  With ``mesh`` the covariance is
+    factored by the distributed Cholesky (``assemble_keta(mesh=)``, one
+    hyperparameter row)."""
     data_vec = make_data_vec(spec, data)
     n_data = spec.n_data          # REAL data count (padding masked out)
     vand = mean.calc_aug_vand(cfg.mean_fun_type, data.x, spec.use_grad,
@@ -65,7 +67,8 @@ def calc_lkd(cfg: GpConfig, spec: DataSpec, data: GpData, hp: Hypers,
 
     if spec.b_has_noisy_data:
         varK = hp.varK
-        ops = assembly.assemble_keta(cfg, spec, data, hp, eta_const, varK=varK)
+        ops = assembly.assemble_keta(cfg, spec, data, hp, eta_const, varK=varK,
+                                     mesh=mesh)
         beta, mean_vec = mean.gls_beta_precon(vand, ops.fac, ops.pvec, data_vec)
         r = data_vec - mean_vec
         alpha = ops.solve(r)
@@ -74,7 +77,8 @@ def calc_lkd(cfg: GpConfig, spec: DataSpec, data: GpData, hp: Hypers,
         ln_lkd = -(ln_det_Kcov + quad) / 2.0
         ln_det = ln_det_Kcov
     else:
-        ops = assembly.assemble_keta(cfg, spec, data, hp, eta_const, varK=None)
+        ops = assembly.assemble_keta(cfg, spec, data, hp, eta_const, varK=None,
+                                     mesh=mesh)
         beta, mean_vec = mean.gls_beta_precon(vand, ops.fac, ops.pvec, data_vec)
         r = data_vec - mean_vec
         alpha = ops.solve(r)
@@ -94,13 +98,13 @@ def calc_lkd(cfg: GpConfig, spec: DataSpec, data: GpData, hp: Hypers,
 # ---------------------------------------------------------------------------
 
 def neg_mll(cfg: GpConfig, spec: DataSpec, info: HpInfo, data: GpData,
-            hp_vec: torch.Tensor, eta_const: float):
+            hp_vec: torch.Tensor, eta_const: float, mesh=None):
     """-ln L of the flat (log-space) hp vector (n_hp,) or (B, n_hp), with
     the JAX package's feasibility-restoring fallback where the Cholesky
     fails: a surrogate that decreases in sum(log10 theta), since a larger
     theta decorrelates K and improves its conditioning."""
     hp = hp_vec_to_hypers(info, hp_vec)
-    lkd = calc_lkd(cfg, spec, data, hp, eta_const, calc_cond=False)
+    lkd = calc_lkd(cfg, spec, data, hp, eta_const, calc_cond=False, mesh=mesh)
     th = hp_vec[..., : info.dim]
     log10_th = th if info.log_theta else torch.log10(th)
     softplus = torch.logaddexp(-log10_th, torch.zeros_like(log10_th))
@@ -112,11 +116,12 @@ def neg_mll(cfg: GpConfig, spec: DataSpec, info: HpInfo, data: GpData,
 
 
 def neg_mll_and_grad(cfg: GpConfig, spec: DataSpec, info: HpInfo,
-                     data: GpData, hp_vec: torch.Tensor, eta_const: float):
+                     data: GpData, hp_vec: torch.Tensor, eta_const: float,
+                     mesh=None):
     """(-ln L, its gradient in hp_vec, LkdInfo), per row of hp_vec."""
     v = hp_vec.detach().requires_grad_(True)
     with torch.enable_grad():
-        val, lkd = neg_mll(cfg, spec, info, data, v, eta_const)
+        val, lkd = neg_mll(cfg, spec, info, data, v, eta_const, mesh=mesh)
         g, = torch.autograd.grad(val.sum(), v)
     g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
     lkd = LkdInfo(*(t.detach() for t in lkd))
@@ -125,9 +130,10 @@ def neg_mll_and_grad(cfg: GpConfig, spec: DataSpec, info: HpInfo,
 
 def calc_lkd_hp_vec(cfg: GpConfig, spec: DataSpec, info: HpInfo, data: GpData,
                     hp_vec: torch.Tensor, eta_const: float,
-                    calc_cond: bool = False) -> LkdInfo:
+                    calc_cond: bool = False, mesh=None) -> LkdInfo:
     hp = hp_vec_to_hypers(info, hp_vec)
-    return calc_lkd(cfg, spec, data, hp, eta_const, calc_cond=calc_cond)
+    return calc_lkd(cfg, spec, data, hp, eta_const, calc_cond=calc_cond,
+                    mesh=mesh)
 
 
 def closed_form_hp(cfg: GpConfig, spec: DataSpec, data: GpData, hp: Hypers,

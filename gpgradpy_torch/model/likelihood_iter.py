@@ -36,6 +36,7 @@ import torch
 
 from ..config import GpConfig
 from ..ops import iterative, kernels
+from ..parallel import sharded_matvec
 from ..types import DataSpec, GpData, Hypers
 from . import assembly, likelihood, mean
 
@@ -72,7 +73,8 @@ def expand_to_full(spec: DataSpec, M: torch.Tensor) -> torch.Tensor:
 
 class IterPieces(NamedTuple):
     """Masked matrix-free building blocks shared by the MLL and predict
-    paths, all in the full blocked layout."""
+    paths, all in the working layout: the full blocked layout, or with a
+    mesh its point-major permutation."""
     mv_hp: Callable            # (hp, V (N, m)[, extra]) -> Keta'(hp) V
     extra_hp: Callable         # hp -> the diagonal Keta adds to K (N,)
     diag_hp: Callable          # hp -> diag(Keta') (N,), 1 on masked rows
@@ -82,7 +84,12 @@ class IterPieces(NamedTuple):
 
 
 def _iter_setup(cfg: GpConfig, spec: DataSpec, data: GpData,
-                eta_const: float, row_block: int) -> IterPieces:
+                eta_const: float, row_block: int, mesh=None) -> IterPieces:
+    """With ``mesh`` (a ``parallel.mesh.Mesh``, whose size divides n_eval)
+    the matvec splits its rows over the ranks
+    (``sharded_matvec.kern_matvec_sharded_batch``) and every vector is in
+    the point-major layout, as in the JAX package (likelihood_iter.py:90-140
+    there); the CG vectors stay whole on every rank."""
     if spec.n_pad_eval:
         raise ValueError("iterative path: disable shape-bucket padding "
                          "(pad_n_eval_multiple)")
@@ -90,7 +97,13 @@ def _iter_setup(cfg: GpConfig, spec: DataSpec, data: GpData,
     n, dim = spec.n_eval, spec.dim
     n_full = n * (1 + dim)
     noisy = spec.b_has_noisy_data
-    mask = make_grad_mask(spec, dtype, dev)
+    mask_b = make_grad_mask(spec, dtype, dev)
+    if mesh is not None:
+        def conv(v):
+            return sharded_matvec.blocked_to_pm_mat(v, n, dim)
+    else:
+        def conv(v):
+            return v
 
     def base_diag(hp_):
         """diag(K): value rows 1, gradient rows gamma_a^2."""
@@ -108,32 +121,38 @@ def _iter_setup(cfg: GpConfig, spec: DataSpec, data: GpData,
         else:
             nv = torch.zeros(n_full, dtype=dtype, device=dev)
         if cfg.wellcond_mtd == "precon":
-            return nv + eta_const * (base_diag(hp_) + nv)
-        return nv + eta_const
+            return conv(nv + eta_const * (base_diag(hp_) + nv))
+        return conv(nv + eta_const)
 
+    mask = None if mask_b is None else conv(mask_b)
     unmask = None if mask is None else (1.0 - mask)[:, None]
 
     def mv_hp(hp_, V, extra=None):
         """Keta'(hp_) V; ``extra`` = extra_diag(hp_) where the caller holds
         it already (a solve at fixed hp)."""
         Vm = V if mask is None else mask[:, None] * V
-        out = iterative.kern_matvec(
-            cfg.kernel_type, data.x, hp_.theta, hp_.kernel, Vm,
-            row_block=row_block,
-            noise_over_varK=extra_diag(hp_) if extra is None else extra)
+        extra = extra_diag(hp_) if extra is None else extra
+        if mesh is not None:
+            out = sharded_matvec.kern_matvec_sharded_batch(
+                cfg.kernel_type, mesh, data.x, hp_.theta, hp_.kernel, Vm,
+                eta=1.0, pvec2_pm=extra, row_block=row_block)
+        else:
+            out = iterative.kern_matvec(
+                cfg.kernel_type, data.x, hp_.theta, hp_.kernel, Vm,
+                row_block=row_block, noise_over_varK=extra)
         if mask is not None:
             out = torch.addcmul(mask[:, None] * out, unmask, V)
         return out
 
     def diag_hp(hp_):
-        d = base_diag(hp_) + extra_diag(hp_)
+        d = conv(base_diag(hp_)) + extra_diag(hp_)
         if mask is not None:
             d = torch.where(mask > 0, d, torch.ones_like(d))
         return d
 
-    data_vec = expand_to_full(spec, likelihood.make_data_vec(spec, data))
-    vand = expand_to_full(spec, mean.calc_aug_vand(
-        cfg.mean_fun_type, data.x, spec.use_grad, spec.idx_grad_arr))
+    data_vec = conv(expand_to_full(spec, likelihood.make_data_vec(spec, data)))
+    vand = conv(expand_to_full(spec, mean.calc_aug_vand(
+        cfg.mean_fun_type, data.x, spec.use_grad, spec.idx_grad_arr)))
     return IterPieces(mv_hp=mv_hp, extra_hp=extra_diag, diag_hp=diag_hp,
                       data_vec=data_vec, vand=vand, mask=mask)
 
@@ -206,7 +225,7 @@ class _Solved(NamedTuple):
 
 
 def _solve_all(cfg, spec, data, hp, eta_const, z, max_cg_iters, cg_tol,
-               row_block, with_u) -> _Solved:
+               row_block, with_u, mesh=None) -> _Solved:
     """Every solve an objective needs at fixed hp, as ONE batched CG on the
     scaled operator D^-1/2 Keta' D^-1/2 (D = diag Keta') with the columns
     [D^-1/2 y, D^-1/2 V] (GLS, to cg_tol), z (SLQ, to SLQ_CG_TOL) and, with
@@ -216,7 +235,7 @@ def _solve_all(cfg, spec, data, hp, eta_const, z, max_cg_iters, cg_tol,
     which runs them as separate loops.  One difference in value: the
     gradient's alpha is the GLS one, where the JAX package solves r again;
     the two agree to the CG tolerance."""
-    pieces = _iter_setup(cfg, spec, data, eta_const, row_block)
+    pieces = _iter_setup(cfg, spec, data, eta_const, row_block, mesh)
     hp = _detached(hp)
     with torch.no_grad():
         diag = pieces.diag_hp(hp)
@@ -249,14 +268,16 @@ def _solve_all(cfg, spec, data, hp, eta_const, z, max_cg_iters, cg_tol,
 def calc_lkd_iterative(cfg: GpConfig, spec: DataSpec, data: GpData,
                        hp: Hypers, eta_const: float, z: torch.Tensor,
                        max_cg_iters: int = 256, cg_tol: float = 1e-10,
-                       row_block: int = 256) -> IterLkdInfo:
-    """Noise-free MLL via CG + SLQ with the probes z (n_full, n_probes).
-    Full, partial or no gradients; 'precon' or 'base' with constant eta."""
+                       row_block: int = 256, mesh=None) -> IterLkdInfo:
+    """Noise-free MLL via CG + SLQ with the probes z (n_full, n_probes) in
+    the working layout (point-major with a mesh).  Full, partial or no
+    gradients; 'precon' or 'base' with constant eta.  With ``mesh`` the
+    matvec's rows are split over its ranks (``_iter_setup``)."""
     if spec.b_has_noisy_data:
         raise ValueError("noisy data: use calc_lkd_iterative_noisy")
     return _lkd_info(cfg, spec, _solve_all(
         cfg, spec, data, hp, eta_const, z, max_cg_iters, cg_tol, row_block,
-        with_u=False))
+        with_u=False, mesh=mesh))
 
 
 def _lkd_info(cfg, spec, sol: _Solved) -> IterLkdInfo:
@@ -272,14 +293,15 @@ def _lkd_info(cfg, spec, sol: _Solved) -> IterLkdInfo:
 def neg_mll_iterative_and_grad(cfg: GpConfig, spec: DataSpec, data: GpData,
                                hp: Hypers, eta_const: float, z: torch.Tensor,
                                max_cg_iters: int = 256, cg_tol: float = 1e-10,
-                               row_block: int = 256):
+                               row_block: int = 256, mesh=None):
     """(-ln L, d(-ln L)/d theta, IterLkdInfo) with determinant-free
     gradients: the surrogate's quadratic forms are differentiated by
-    autograd through the matrix-free matvec (alpha, u, z constant)."""
+    autograd through the matrix-free matvec (alpha, u, z constant).  With
+    ``mesh`` every rank gets the whole gradient (``ShardedMatvecFn``)."""
     if spec.b_has_noisy_data:
         raise ValueError("noisy data: use neg_mll_iterative_noisy_and_grad")
     sol = _solve_all(cfg, spec, data, hp, eta_const, z, max_cg_iters, cg_tol,
-                     row_block, with_u=True)
+                     row_block, with_u=True, mesh=mesh)
     info = _lkd_info(cfg, spec, sol)
     alpha, u = sol.alpha, sol.u
 
@@ -303,14 +325,15 @@ def neg_mll_iterative_and_grad(cfg: GpConfig, spec: DataSpec, data: GpData,
 def calc_lkd_iterative_noisy(cfg: GpConfig, spec: DataSpec, data: GpData,
                              hp: Hypers, eta_const: float, z: torch.Tensor,
                              max_cg_iters: int = 256, cg_tol: float = 1e-10,
-                             row_block: int = 256) -> IterLkdInfo:
+                             row_block: int = 256,
+                             mesh=None) -> IterLkdInfo:
     """Noisy-regime MLL via CG + SLQ:
     -2 ln L = n ln varK + ln det Keta + r^T Keta^-1 r / varK."""
     if not spec.b_has_noisy_data:
         raise ValueError("noise-free data: use calc_lkd_iterative")
     return _lkd_info_noisy(spec, hp, _solve_all(
         cfg, spec, data, hp, eta_const, z, max_cg_iters, cg_tol, row_block,
-        with_u=False))
+        with_u=False, mesh=mesh))
 
 
 def _lkd_info_noisy(spec, hp, sol: _Solved) -> IterLkdInfo:
@@ -330,7 +353,7 @@ def neg_mll_iterative_noisy_and_grad(cfg: GpConfig, spec: DataSpec,
                                      eta_const: float, z: torch.Tensor,
                                      max_cg_iters: int = 256,
                                      cg_tol: float = 1e-10,
-                                     row_block: int = 256):
+                                     row_block: int = 256, mesh=None):
     """(-ln L, Hypers of gradients over theta, varK, var_fval and var_fgrad
     (those hp carries), info) for the noisy regime, determinant-free:
 
@@ -344,7 +367,7 @@ def neg_mll_iterative_noisy_and_grad(cfg: GpConfig, spec: DataSpec,
     if not spec.b_has_noisy_data:
         raise ValueError("noise-free data: use neg_mll_iterative_and_grad")
     sol = _solve_all(cfg, spec, data, hp, eta_const, z, max_cg_iters, cg_tol,
-                     row_block, with_u=True)
+                     row_block, with_u=True, mesh=mesh)
     info = _lkd_info_noisy(spec, hp, sol)
     a, u = sol.alpha, sol.u
     ar = torch.dot(a, sol.r)
@@ -372,10 +395,10 @@ def neg_mll_iterative_noisy_and_grad(cfg: GpConfig, spec: DataSpec,
 def closed_form_iterative(cfg: GpConfig, spec: DataSpec, data: GpData,
                           hp: Hypers, eta_const: float,
                           max_cg_iters: int = 256, cg_tol: float = 1e-10,
-                          row_block: int = 256) -> Hypers:
+                          row_block: int = 256, mesh=None) -> Hypers:
     """Fill in beta (and varK in the noise-free regime) with their GLS /
     profiled maximizers via batched CG."""
-    pieces = _iter_setup(cfg, spec, data, eta_const, row_block)
+    pieces = _iter_setup(cfg, spec, data, eta_const, row_block, mesh)
     solve, _ = _solver(pieces, hp, max_cg_iters, cg_tol)
     beta, r, alpha, _ = _gls(pieces, solve)
     if spec.b_has_noisy_data:

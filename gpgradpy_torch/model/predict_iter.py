@@ -3,7 +3,12 @@ covariance (counterpart of ``gpgradpy_tpu/model/predict_iter.py``): solves
 by batched CG against the matrix-free Keta matvec (K1 per row tile on the
 card), the cross-covariance in plain PyTorch as ``model/predict.py`` builds
 it.  Noise-free and noisy regimes, full / partial / no gradients (the
-masked full layout of ``likelihood_iter``).  No probes: deterministic."""
+masked full layout of ``likelihood_iter``).  No probes: deterministic.
+
+With ``mesh`` the training points are split over its ranks: the matvec's
+rows (``likelihood_iter._iter_setup``) and the cross covariance's (each
+rank's points against the queries, K1's value columns, gathered), in the
+point-major layout; mu and sigma only, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -13,16 +18,26 @@ import torch
 
 from ..config import GpConfig
 from ..ops import kernels, rtensor
+from ..parallel import sharded_matvec
 from ..types import DataSpec, GpData, Hypers
 from . import mean
 from .likelihood_iter import _gls, _iter_setup, _solver
 
 
 def _cross_cov_full(cfg: GpConfig, spec: DataSpec, x_train: torch.Tensor,
-                    xq: torch.Tensor, hp: Hypers, calc_grad: bool = False):
+                    xq: torch.Tensor, hp: Hypers, calc_grad: bool = False,
+                    mesh=None):
     """Cross covariance in the FULL blocked layout: Kyx (n*(1+d), nx) and,
     with ``calc_grad``, dKxy_dx (nx*d, n*(1+d)) ordered b*nx + q.  Masking
-    of missing gradient rows is the caller's job."""
+    of missing gradient rows is the caller's job.  With ``mesh``: Kyx in
+    the point-major layout, split over the ranks (no dKxy_dx)."""
+    if mesh is not None:
+        if calc_grad:
+            raise NotImplementedError(
+                "sharded cross covariance: mu and sigma only (as in the JAX "
+                "package)")
+        return sharded_matvec.cross_cov_sharded(
+            cfg.kernel_type, mesh, x_train, xq, hp.theta, hp.kernel), None
     dim = x_train.shape[1]
     nx, n = xq.shape[0], x_train.shape[0]
     G = kernels.kern_block_tensor(cfg.kernel_type,
@@ -48,10 +63,10 @@ class IterEvalState(NamedTuple):
 def setup_eval_iterative(cfg: GpConfig, spec: DataSpec, data: GpData,
                          hp: Hypers, eta_const: float,
                          max_cg_iters: int = 256, cg_tol: float = 1e-10,
-                         row_block: int = 256) -> IterEvalState:
+                         row_block: int = 256, mesh=None) -> IterEvalState:
     """Matrix-free analog of predict.setup_eval: one batched CG for the
     residual solve (and the GLS beta/varK if hp does not carry them)."""
-    pieces = _iter_setup(cfg, spec, data, eta_const, row_block)
+    pieces = _iter_setup(cfg, spec, data, eta_const, row_block, mesh)
     solve, _ = _solver(pieces, hp, max_cg_iters, cg_tol)
     beta, r, alpha, res = _gls(pieces, solve, beta_known=hp.beta)
     varK = hp.varK
@@ -69,15 +84,16 @@ def eval_model_iterative(cfg: GpConfig, spec: DataSpec, data: GpData,
                          state: IterEvalState, eta_const: float,
                          xq: torch.Tensor, calc_sig: bool = True,
                          calc_grad: bool = False, max_cg_iters: int = 256,
-                         cg_tol: float = 1e-10, row_block: int = 256):
+                         cg_tol: float = 1e-10, row_block: int = 256,
+                         mesh=None):
     """(mu, sig, dmudx, dsigdx) at query points xq (nx, dim).  sig costs one
     batched CG over the nx cross-covariance columns; mu alone only the
     cross-covariance against the cached alpha."""
     hp = state.hp
     nx, dim = xq.shape
-    pieces = _iter_setup(cfg, spec, data, eta_const, row_block)
+    pieces = _iter_setup(cfg, spec, data, eta_const, row_block, mesh)
     Kyx, dKxy_dx = _cross_cov_full(cfg, spec, data.x, xq, hp,
-                                   calc_grad=calc_grad)
+                                   calc_grad=calc_grad, mesh=mesh)
     if pieces.mask is not None:
         Kyx = Kyx * pieces.mask[:, None]
         if dKxy_dx is not None:
@@ -108,12 +124,13 @@ def eval_model_iterative(cfg: GpConfig, spec: DataSpec, data: GpData,
 def predict_iterative(cfg: GpConfig, spec: DataSpec, data: GpData,
                       hp: Hypers, eta_const: float, xq: torch.Tensor,
                       max_cg_iters: int = 256, cg_tol: float = 1e-10,
-                      row_block: int = 256, calc_sig: bool = True):
+                      row_block: int = 256, calc_sig: bool = True,
+                      mesh=None):
     """One-shot posterior (mu, sig, beta, varK, res) at xq: the GLS and the
     query solves batch into one mbcg call."""
-    pieces = _iter_setup(cfg, spec, data, eta_const, row_block)
+    pieces = _iter_setup(cfg, spec, data, eta_const, row_block, mesh)
     solve, _ = _solver(pieces, hp, max_cg_iters, cg_tol)
-    Kyx, _ = _cross_cov_full(cfg, spec, data.x, xq, hp)
+    Kyx, _ = _cross_cov_full(cfg, spec, data.x, xq, hp, mesh=mesh)
     if pieces.mask is not None:
         Kyx = Kyx * pieces.mask[:, None]
 

@@ -44,8 +44,11 @@ CHECK_EVERY = 8
 SLQ_CG_TOL = 1e-10
 
 
-def _tiles(n: int, row_block: int):
-    return [(s, min(s + row_block, n)) for s in range(0, n, row_block)]
+def _tiles(n: int, row_block: int, rows: slice = slice(None)):
+    """(start, stop) of each tile of ``row_block`` points in ``rows``."""
+    start, stop, _ = rows.indices(n)
+    return [(s, min(s + row_block, stop))
+            for s in range(start, stop, row_block)]
 
 
 def rademacher(n: int, m: int, seed: int, dtype=torch.float64,
@@ -79,18 +82,39 @@ def kern_matvec_plain(kernel_type: str, x: torch.Tensor, theta, alpha,
     return torch.cat(outs, dim=1).reshape(A * n, -1)
 
 
-def _matvec_k1(kernel_type, x, theta, alpha, V, row_block):
-    """K V with K1 per row tile: tile rows a*b + i of K1's blocked output
-    land on rows a*n + s + i."""
-    n, dim = x.shape
-    A = dim + 1
-    if n <= row_block:   # one tile: K1's blocked rows are the layout's own
-        return cuda_assembly.kern_grad(kernel_type, x, x, theta, alpha) @ V
-    out = torch.empty((A, n, V.shape[1]), dtype=V.dtype, device=V.device)
-    for s, e in _tiles(n, row_block):
+def _matvec_k1(kernel_type, x, theta, alpha, V, row_block,
+               rows: slice = slice(None)):
+    """The rows of K V of the points ``rows`` (all by default), blocked
+    over those points ((1+d) n_rows, m), with K1 per row tile: tile rows
+    a*b + i of K1's blocked output land on rows a*n_rows + s + i."""
+    tiles = _tiles(x.shape[0], row_block, rows)
+    if len(tiles) == 1:   # one tile: K1's blocked rows are the layout's own
+        s, e = tiles[0]
+        return cuda_assembly.kern_grad(kernel_type, x[s:e], x, theta,
+                                       alpha) @ V
+    A = x.shape[1] + 1
+    s0 = tiles[0][0]
+    out = torch.empty((A, tiles[-1][1] - s0, V.shape[1]), dtype=V.dtype,
+                      device=V.device)
+    for s, e in tiles:
         Kt = cuda_assembly.kern_grad(kernel_type, x[s:e], x, theta, alpha)
-        out[:, s:e] = (Kt @ V).reshape(A, e - s, -1)
-    return out.reshape(A * n, -1)
+        out[:, s - s0:e - s0] = (Kt @ V).reshape(A, e - s, -1)
+    return out.reshape(-1, V.shape[1])
+
+
+def _theta_vjp_k2(kernel_type, x, theta, alpha, V, gb, row_block,
+                  rows: slice = slice(None)):
+    """The theta cotangent of the rows ``rows`` of K V, from their
+    cotangent ``gb`` ((1+d), n_rows, m), blocked over those points): K2 per
+    row tile against gbar = g_tile V^T."""
+    tiles = _tiles(x.shape[0], row_block, rows)
+    A, s0 = x.shape[1] + 1, tiles[0][0]
+    g_theta = torch.zeros_like(theta)
+    for s, e in tiles:
+        gbar = gb[:, s - s0:e - s0].reshape(A * (e - s), -1) @ V.T
+        g_theta = g_theta + cuda_assembly.kern_grad_vjp_theta(
+            kernel_type, x[s:e], x, theta, alpha, gbar)
+    return g_theta
 
 
 class KernMatvecFn(torch.autograd.Function):
@@ -117,14 +141,8 @@ class KernMatvecFn(torch.autograd.Function):
                 "the matrix-free matvec has no x or alpha cotangent")
         g_theta = g_V = None
         if need_theta:
-            n, dim = x.shape
-            A = dim + 1
-            gb = g.reshape(A, n, -1)
-            g_theta = torch.zeros_like(theta)
-            for s, e in _tiles(n, rb):
-                gbar = gb[:, s:e].reshape(A * (e - s), -1) @ V.T
-                g_theta = g_theta + cuda_assembly.kern_grad_vjp_theta(
-                    kt, x[s:e], x, theta, alpha, gbar)
+            gb = g.reshape(x.shape[1] + 1, x.shape[0], -1)
+            g_theta = _theta_vjp_k2(kt, x, theta, alpha, V, gb, rb)
         if need_V:
             g_V = _matvec_k1(kt, x, theta, alpha, g, rb)
         return None, None, None, g_theta, None, g_V

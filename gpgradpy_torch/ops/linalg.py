@@ -33,6 +33,54 @@ def cholesky_ok(A: torch.Tensor) -> CholFac:
     return CholFac(L, ok)
 
 
+class CholDistFn(torch.autograd.Function):
+    """The distributed blocked Cholesky (``parallel/chol_dist.py``), its
+    factor gathered to every rank, with the closed-form pullback on the
+    saved factor (linalg.py:72-114 of the JAX package):
+
+        Abar = L^-T Phi(L^T Lbar) L^-1,  Phi = tril, diagonal halved,
+
+    returned symmetrized.  A and Lbar are the same on every rank, so each
+    rank computes the whole Abar with two triangular solves and no
+    collective."""
+
+    @staticmethod
+    def forward(ctx, A, mesh, block: int):
+        from ..parallel.chol_dist import cholesky_dist
+        from ..parallel.mesh import gather_batch
+        L_loc, _ = cholesky_dist(mesh, A, block)
+        L = gather_batch(L_loc, mesh)
+        ctx.save_for_backward(L)
+        return L
+
+    @staticmethod
+    def backward(ctx, Lbar):
+        L, = ctx.saved_tensors
+        W = torch.tril(L.T @ Lbar)
+        W = W - 0.5 * torch.diag_embed(torch.diagonal(W))
+        Y = torch.linalg.solve_triangular(L.T, W, upper=True)   # L^T Y = Phi
+        Abar = torch.linalg.solve_triangular(L, Y, upper=False,
+                                             left=False)        # Y L^-1
+        return 0.5 * (Abar + Abar.T), None, None
+
+
+def cholesky_ok_dist(A: torch.Tensor, mesh, block: int = 64) -> CholFac:
+    """``cholesky_ok`` of one (n, n) matrix with the factorization
+    distributed over the ranks of ``mesh`` (linalg.py:117-132 of the JAX
+    package): the factor, gathered, with the identity in place of a failed
+    one and the ``ok`` flag, the same on every rank; differentiable.
+
+    The pullback is the symmetrized one, which is right where A is built
+    elementwise-symmetrically from what is differentiated (every
+    covariance here is); for an asymmetric construction use
+    ``cholesky_ok``."""
+    L = CholDistFn.apply(A, mesh, int(block))
+    d = torch.diagonal(L)
+    ok = torch.isfinite(d).all() & (d > 0.0).all()
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return CholFac(torch.where(ok, L, eye), ok)
+
+
 def cho_solve(fac: CholFac, b: torch.Tensor) -> torch.Tensor:
     """A^-1 b for a right-hand side matrix b of shape (..., n, k)."""
     return torch.cholesky_solve(b, fac.L)

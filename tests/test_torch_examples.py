@@ -16,6 +16,11 @@ example's own size.  Tolerances:
   optimizers stop on a flat optimum, test_torch_facade);
 - the BO worker: the same npz keys, shapes and dtypes, the same initial
   design and its values exactly.
+- large_n_demo (world size 1) with the JAX example's probes against the
+  JAX example's loop on its 8-device mesh: -ln L and theta rtol 1e-8, mu
+  rtol 1e-7, sig rtol 1e-5 (the iterative tests' tolerances);
+  scaling_harness at world sizes 1 and 2 (spawned gloo groups): each
+  point's best start rtol 1e-8 of the JAX multistart solver's.
 
 The whole-script runs with ``--device cpu`` carry the ``slow`` mark exactly
 where their JAX counterparts in tests/test_examples.py do.
@@ -34,9 +39,10 @@ import examples.plt_kern_corr as jax_kern_corr
 import examples.plt_nugget_1d as jax_nugget
 import examples.plt_surr_1d as jax_surr
 import examples.run_paper_traces as jax_traces
-from gpgradpy_torch.examples import (optz_paper_precon, plt_acq, plt_cond,
-                                     plt_kern_corr, plt_nugget_1d,
-                                     plt_surr_1d, run_paper_traces)
+from gpgradpy_torch.examples import (large_n_demo, optz_paper_precon,
+                                     plt_acq, plt_cond, plt_kern_corr,
+                                     plt_nugget_1d, plt_surr_1d,
+                                     run_paper_traces, scaling_harness)
 from gpgradpy_torch.results import PltOptzResults
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -202,6 +208,115 @@ def test_run_paper_traces_default_out_dir_is_the_ports():
     out = run_paper_traces.build_parser().parse_args([]).out_dir
     assert not os.path.normpath(out).startswith(
         os.path.join("results_data", "full_"))
+
+
+def _jax_large_n_demo(n, dim, steps):
+    """examples/large_n_demo.py's fit and predict (main, :50-106) on the
+    JAX package's 8-device mesh, each objective and the predict jitted;
+    also returns each step's probes (the key's split, in the point-major
+    layout)."""
+    import jax
+    import jax.numpy as jnp
+    import gpgradpy_tpu as jgp
+    from gpgradpy_tpu.bo.problems import rosenbrock
+    from gpgradpy_tpu.model import conditioning, likelihood_iter, predict_iter
+    from gpgradpy_tpu.parallel import sharded_matvec as sm
+    mesh = sm.make_data_mesh()
+    n -= n % mesh.size
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-2, 2, (n, dim))
+    f, g = rosenbrock(x)
+    xq = rng.uniform(-2, 2, (64, dim))
+    cfg = jgp.GpConfig(dim=dim, use_grad=True, kernel_type="SqExp",
+                       wellcond_mtd="precon", cond_max_target=1e6)
+    spec = jgp.make_data_spec(dim, True, n, std_fval=np.zeros(n),
+                              std_grad=np.zeros((n, dim)))
+    data = jgp.GpData(x=jnp.asarray(x), fval=jnp.asarray(f),
+                      std_fval=jnp.zeros(n), grad=jnp.asarray(g),
+                      std_grad=jnp.zeros((n, dim)))
+    eta = conditioning.calc_etaK(cfg, n)
+    obj = jax.jit(lambda th, k: likelihood_iter.neg_mll_iterative_and_grad(
+        cfg, spec, data, jgp.Hypers(theta=th), eta, k, n_probes=8,
+        max_cg_iters=400, cg_tol=1e-8, mesh=mesh)[:2])
+    log_theta = jnp.zeros(dim) - 1.0
+    key = jax.random.PRNGKey(0)
+    trace, probes = [], []
+    for it in range(steps):
+        k = jax.random.fold_in(key, it)
+        probes.append(np.asarray(jax.random.rademacher(
+            jax.random.split(k, 1)[0], (n * (1 + dim), 8),
+            dtype=jnp.float64)))
+        val, gth = obj(10.0 ** log_theta, k)
+        glog = gth * (10.0 ** log_theta) * np.log(10.0)
+        log_theta = jnp.clip(log_theta - 0.15 * jnp.clip(glog, -1.0, 1.0),
+                             -4.0, 2.0)
+        trace.append(float(val))
+    mu, sig, *_ = jax.jit(lambda th, q: predict_iter.predict_iterative(
+        cfg, spec, data, jgp.Hypers(theta=th), eta, q, max_cg_iters=300,
+        mesh=mesh))(10.0 ** log_theta, jnp.asarray(xq))
+    return dict(neg_lnL=trace, theta=np.asarray(10.0 ** log_theta),
+                mu=np.asarray(mu), sig=np.asarray(sig)), probes
+
+
+def test_large_n_demo_matches_jax():
+    """The demo's compute part at n=32, d=2, 3 steps on a group of one rank,
+    with the JAX example's probes, against the JAX example's fit and
+    predict on its 8-device mesh: -ln L at each step and theta to rtol
+    1e-8, mu to rtol 1e-7 (atol 1e-9) and sig to rtol 1e-5 (atol 1e-9),
+    the tolerances of the iterative tests."""
+    want, probes = _jax_large_n_demo(32, 2, 3)
+    got = large_n_demo.compute(32, 2, 3, device="cpu",
+                               probes=lambda it, n_full: probes[it],
+                               verbose=False)
+    assert got["world_size"] == 1 and got["backend"] == "gloo"
+    assert got["n_eval"] == 32 and got["predict_cg_resid"] < 1e-8
+    np.testing.assert_allclose(got["neg_lnL"], want["neg_lnL"], rtol=1e-8)
+    np.testing.assert_allclose(got["theta"], want["theta"], rtol=1e-8)
+    np.testing.assert_allclose(got["mu"], want["mu"], rtol=1e-7, atol=1e-9)
+    np.testing.assert_allclose(got["sig"], want["sig"], rtol=1e-5, atol=1e-9)
+
+
+def test_scaling_harness_matches_jax():
+    """The harness at world sizes 1 and 2 (spawned gloo groups) with 4
+    chains, 4 + 4 transitions and 4 starts: the JSON's fields, each point's
+    best start against the JAX package's multistart solver on the same
+    starts (rtol 1e-8, tests/test_sharding.py's criterion), the chains'
+    mean equal across the world sizes (rtol 1e-8: the GP log posterior of
+    4 chains and of 2 rounds apart by ~1e-10 in 8 transitions), and no
+    70% claim from ranks that share the CPU."""
+    import jax.numpy as jnp
+    import gpgradpy_tpu as jgp
+    from gpgradpy_tpu.fit import lhs, multistart
+    from gpgradpy_tpu.model import conditioning
+    with pytest.raises(ValueError, match="divide"):
+        scaling_harness.compute((3,), chains=4, starts=4, device="cpu")
+    res = scaling_harness.compute((1, 2), chains=4, samples=4, warmup=4,
+                                  starts=4, device="cpu")
+    assert res["backend"] == "gloo" and res["platform"] == "cpu"
+    assert [p["world_size"] for p in res["points"]] == [1, 2]
+    assert all(p["shared_device"] for p in res["points"])
+    assert res["meets_70pct_target"] is False
+    assert res["points"][0]["nuts_eff"] == 1.0
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-1.5, 1.5, (24, 2))
+    cfg = jgp.GpConfig(dim=2, use_grad=True, kernel_type="SqExp",
+                       wellcond_mtd="precon")
+    spec = jgp.make_data_spec(2, True, 24, std_fval=np.zeros(24),
+                              std_grad=np.zeros((24, 2)))
+    data = jgp.GpData(x=jnp.asarray(x), fval=jnp.asarray(
+        np.sum((x - 0.3) ** 2, axis=1)), std_fval=jnp.zeros(24),
+        grad=jnp.asarray(2.0 * (x - 0.3)), std_grad=jnp.zeros((24, 2)))
+    lb, ub = np.full(2, -4.0), np.full(2, 2.0)
+    f_jax = multistart._jit_solver(cfg, spec, jgp.HpInfo(dim=2), 50, 1e-12)(
+        jnp.asarray(lhs.lhs_sample(4, lb + 0.5, ub - 0.5, 3)),
+        jnp.asarray(lb), jnp.asarray(ub), data,
+        conditioning.calc_etaK(cfg, 24)).f
+    for pt in res["points"]:
+        np.testing.assert_allclose(pt["fit_best_f"], np.min(np.asarray(f_jax)),
+                                   rtol=1e-8)
+        assert pt["nuts_samples_per_s"] > 0 and pt["fit_starts_per_s"] > 0
+    np.testing.assert_allclose(res["points"][1]["nuts_mean_z"],
+                               res["points"][0]["nuts_mean_z"], rtol=1e-8)
 
 
 def _run_example(name, tmp_path, timeout=600):

@@ -76,13 +76,22 @@ def test_facade_needs_a_card_or_an_explicit_cpu():
     dict(solver="dense_dist", wellcond_mtd="base"),
     dict(solver="iterative", iter_use_mesh=True, wellcond_mtd="base")])
 def test_options_of_later_slices_raise(option):
+    """The multi-device options are ported: they raise only as every entry
+    point does, without a card unless the CPU is asked for, and where the
+    JAX package refuses them too (dense_dist fits 'precon' only)."""
     kw = dict(option)
     wellcond = kw.pop("wellcond_mtd", "precon")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        GaussianProcess(2, True, "SqExp", wellcond, device="cpu", **kw)
-    gp = GaussianProcess(2, True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 4"):
-        gp.sample_posterior(use_mesh=True)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            GaussianProcess(2, True, "SqExp", wellcond, **kw)
+    gp = GaussianProcess(2, True, "SqExp", wellcond, device="cpu", **kw)
+    assert all(getattr(gp.cfg, k) == v for k, v in kw.items())
+    if kw["solver"] == "dense_dist" and wellcond == "base":
+        x, f, g, _ = _data(n=6)
+        gp.init_optz_surr(2)
+        gp.set_data(x, f, np.zeros(6), g, np.zeros_like(g))
+        with pytest.raises(ValueError, match="precon"):
+            gp.set_hpara("optz", 0)
 
 
 def test_base_method_float32_and_padding():

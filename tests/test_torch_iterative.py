@@ -477,12 +477,9 @@ def test_rescale_loop_fits_through_the_iterative_driver():
 
 
 def test_iterative_refusals():
-    """What the iterative solver does not run raises, naming its ROADMAP
-    item or the JAX package's message: the sharded matvec, a fitted RatQu
-    alpha, Hessians, and polish; padding is not applied."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        GaussianProcess(2, True, solver="iterative", iter_use_mesh=True,
-                        device="cpu")
+    """What the iterative solver does not run raises with the JAX package's
+    message: a fitted RatQu alpha, Hessians, and polish; padding is not
+    applied.  (The sharded matvec, iter_use_mesh, runs: test_torch_parallel.py.)"""
     with pytest.raises(AssertionError, match="polish_cond_target"):
         GaussianProcess(2, True, solver="iterative", polish_cond_target=1e10,
                         device="cpu")

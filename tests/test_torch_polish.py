@@ -27,7 +27,6 @@ from gpgradpy_tpu.fit.multistart import FitResult as JaxFit
 from gpgradpy_tpu.ops import linalg as jlinalg
 from gpgradpy_torch import GaussianProcess
 from gpgradpy_torch.bo.problems import rosenbrock
-from gpgradpy_torch.config import GpConfig
 from gpgradpy_torch.fit.multistart import FitResult
 from gpgradpy_torch.ops import linalg
 
@@ -197,15 +196,3 @@ def test_query_is_cast_to_the_predict_precision():
         assert _rel(got, want) < 1e-12
     for got, want in zip(out["fn"], out["f64"][:2]):
         assert _rel(got.numpy(), want) < 1e-12
-
-
-def test_check_ported_refuses_only_multi_device():
-    GpConfig(polish_cond_target=1e10, n_refine_predict=2,
-             dtype="float32").check_ported()
-    GaussianProcess(2, True, device="cpu", n_refine_predict=2)
-    for kw in (dict(solver="iterative", iter_use_mesh=True),
-               dict(solver="dense_dist")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            GpConfig(**kw).check_ported()
-    with pytest.raises(AssertionError, match="polish_cond_target"):
-        GpConfig(solver="iterative", polish_cond_target=1e10)

@@ -2,8 +2,8 @@
 scalar-kernel oracle, against the JAX package (CPU, float64).
 
 Tolerances: the telemetry text equal to the JAX package's line by line,
-but for the option lines of fields only the JAX config has (``use_pallas``,
-``dist_chol_block``) and, after each package's own fits, the timing and
+but for the option line of the field only the JAX config has
+(``use_pallas``) and, after each package's own fits, the timing and
 iteration columns of the optimization table (test_txt_info_matches_jax);
 ``lkd_grid`` to rtol 1e-9 at rows with cond < 1e9, 1e-7 at the others;
 ``test_grad_calc`` equal; ``gamma2theta`` equal, ``scalar_kernel`` and its
@@ -30,7 +30,7 @@ from gpgradpy_torch.utils.gradcheck import test_grad_calc as fd_grad_check
 
 KERNELS = ["SqExp", "Ma5f2", "RatQu"]
 ALPHA = {"SqExp": None, "Ma5f2": None, "RatQu": 2.0}
-JAX_ONLY_OPTIONS = ("use_pallas", "dist_chol_block")
+JAX_ONLY_OPTIONS = ("use_pallas",)
 
 
 def _problem_2d(n=10):
@@ -82,8 +82,8 @@ def _lines(text, drop_cols=()):
 
 
 def test_txt_info_matches_jax():
-    """After the same rounds the texts agree but for the option lines of
-    the JAX-only fields, the timing columns and the L-BFGS iteration
+    """After the same rounds the texts agree but for the option line of
+    the JAX-only field, the timing columns and the L-BFGS iteration
     columns: on this flat 1-D likelihood the two optimizers stop one
     iteration apart (ROADMAP Queue 3, "Flat optima").  With the JAX
     package's history loaded into the port's facade, the texts agree but
