@@ -202,8 +202,7 @@ def lbfgs_sharded(fun: Callable, x0_all: np.ndarray, lb: np.ndarray,
 _THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
 
 
-def _spawned_rank(rank, world, store, device_type, fn, args, queue):
-    threads = max(1, (os.cpu_count() or 1) // world)
+def _spawned_rank(rank, world, store, device_type, threads, fn, args, queue):
     if device_type == "cpu":
         torch.set_num_threads(threads)
     device = (torch.device("cuda", rank) if device_type == "cuda"
@@ -223,9 +222,10 @@ def run_spawned(fn: Callable, world: int, device="cpu", args=(),
                 timeout: float = 1800.0) -> list:
     """``fn(mesh, *args)`` on ``world`` ranks, each a spawned process of
     one new process group (a ``file://`` store under ``build/``, no
-    network): rank r on ``cuda:r`` (NCCL) or on the CPU (gloo, the host's
-    cores split between the ranks).  Returns every rank's result, rank
-    order.  ``fn`` and ``args`` must pickle (a module-level function).
+    network): rank r on ``cuda:r`` (NCCL) or on the CPU (gloo, this
+    process's torch threads split between the ranks).  Returns every
+    rank's result, rank order.  ``fn`` and ``args`` must pickle (a
+    module-level function).
     Raises a rank's exception, a rank's exit without a result, or a
     TimeoutError after ``timeout`` seconds (a deadlocked collective)."""
     import torch.multiprocessing as mp
@@ -237,14 +237,15 @@ def run_spawned(fn: Callable, world: int, device="cpu", args=(),
     queue = ctx.Queue()
     STORE_DIR.mkdir(parents=True, exist_ok=True)
     store = STORE_DIR / f"store_w{world}_{os.getpid()}_{time.time_ns()}"
+    threads = max(1, torch.get_num_threads() // world)
     procs = [ctx.Process(target=_spawned_rank,
-                         args=(r, world, store, device_type, fn, args, queue))
+                         args=(r, world, store, device_type, threads, fn,
+                               args, queue))
              for r in range(world)]
-    # the ranks' BLAS pools get their share of the cores: idle BLAS threads
+    # the ranks' BLAS pools get their share of the threads: idle BLAS threads
     # that spin for work stall the other ranks' collectives
     saved = {k: os.environ.get(k) for k in _THREAD_VARS}
-    os.environ.update({k: str(max(1, (os.cpu_count() or 1) // world))
-                       for k in _THREAD_VARS})
+    os.environ.update({k: str(threads) for k in _THREAD_VARS})
     try:
         for p in procs:
             p.start()

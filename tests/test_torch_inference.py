@@ -576,9 +576,10 @@ def test_nuts_gp_hyperparameter_posterior():
     """The posterior over log10(theta) of the d=1 GP concentrates around
     the port's MAP estimate.  Cut from the JAX test's 200 + 300 transitions
     at depth 8 to 30 + 30 at depth 5: the posterior takes ~40 leapfrogs per
-    transition at ~4 ms each on the CPU, and the median sits within 0.04
-    of the MAP (limit 0.5) at this size on seeds 0-2.  The JAX length runs
-    in test_nuts_gp_hyperparameter_posterior_jax_length."""
+    transition at ~4 ms each on one CPU core (a test worker's share of the
+    cores, conftest.py; all 8 cores are no faster), and the median
+    sits within 0.04 of the MAP (limit 0.5) at this size on seeds 0-2.  The
+    JAX length runs in test_nuts_gp_hyperparameter_posterior_jax_length."""
     _gp_posterior_concentrates(30, 30, 5)
 
 

@@ -50,7 +50,9 @@ from gpgradpy_torch.parallel.mesh import local_slice, run_spawned
 import torch_parallel_jobs as jobs
 
 WORLDS = (2, 4)
-SPAWN_TIMEOUT = 300      # seconds for one world size's job
+# seconds for one world size's job, a deadlock guard: 3x world 4's 86 s in a
+# run of the whole suite, six workers on 8 cores (world 2's took 47 s)
+SPAWN_TIMEOUT = 260
 N_PROBES = 8
 ITER_KW = dict(max_cg_iters=300)
 
