@@ -79,6 +79,7 @@ FIRST = (TESTS / "test_facade_iterative.py",)
 
 
 def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs an NVIDIA GPU")
     config.addinivalue_line(
         "markers", "timeout(seconds): time limit of each of the test's setup "
         f"and call (default {DEFAULT_TIMEOUT:g} s)")

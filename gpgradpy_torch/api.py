@@ -714,7 +714,7 @@ class GaussianProcess:
                                          self.data, self._eval_state, xq,
                                          calc_grad=calc_grad,
                                          calc_hess=calc_hess)
-        out = [None if v is None else v.cpu().numpy() for v in out]
+        out = predict.to_host(out)
         if self.DataScl is not None:
             out = self.DataScl.obj_scl_2_init(*out)
         return self._squeeze(out, squeeze_nx)
@@ -737,7 +737,7 @@ class GaussianProcess:
                                              self.data, self._eval_state, xq,
                                              calc_grad=calc_grad,
                                              calc_hess=calc_hess)
-        out = [None if v is None else v.cpu().numpy() for v in out]
+        out = predict.to_host(out)
         if self.DataScl is not None:
             s = self.DataScl
             o2 = s.obj_scale ** 2
@@ -830,7 +830,8 @@ class GaussianProcess:
                                       spec.idx_grad_arr)
             sol = predict._ops_solve(cfg, state.ops,
                                      data_vec - vand @ hp.beta)
-            Kyx, dKxy_dx = predict._cross_cov(cfg, spec, x, xq, hp)
+            Kyx, dKxy_dx = predict._cross_cov(cfg, spec, x, xq, hp,
+                                              state.pad_mask, state.idx_grad)
             mval, mgrad, _ = mean.eval_mean_fun(cfg.mean_fun_type, xq,
                                                 hp.beta)
             mu = (mval + Kyx.T @ sol).cpu().numpy()

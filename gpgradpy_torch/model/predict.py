@@ -7,11 +7,18 @@ Precision: the predict runs in ``_predict_dtype(cfg)``.  With
 main fit ran in f32); with ``cfg.n_refine_predict`` the covariance is
 assembled in f64 and factorized in f32, and every predict solve refines
 against the f64 matrix (``_ops_solve``).
+
+On a CUDA device with autograd off, ``eval_model`` and ``eval_model_var``
+replay a CUDA graph of their own eager body (``PredictGraphs``): a query of
+a few rows is ~80 small kernels behind ~270 torch calls on the host, and
+the replay issues them in one call.  Elsewhere (CPU tensors, autograd on)
+the eager body runs as it is.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -21,12 +28,97 @@ from ..types import DataSpec, GpData, Hypers, cast_float_tree
 from . import assembly, likelihood, mean
 
 
+class _Captured:
+    """One captured predict: the query buffer it reads, its outputs packed
+    into one flat buffer and their shapes (None where not computed), and
+    the training data whose memory the graph reads."""
+
+    def __init__(self, run, xq: torch.Tensor, data: GpData, pool):
+        self.data = data
+        self.xq = xq.clone()
+        self.graph = torch.cuda.CUDAGraph()
+        side = _capture_stream(xq.device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            # warm-up on the capture stream: its cuBLAS / cuSOLVER handles
+            # and workspaces exist before the capture
+            run(self.xq)
+            self.graph.capture_begin(pool=pool)
+            try:
+                outs = run(self.xq)
+                self.flat = torch.cat([v.reshape(-1) for v in outs
+                                       if v is not None])
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream().wait_stream(side)
+        self.shapes = [None if v is None else tuple(v.shape) for v in outs]
+
+
+_CAPTURE_STREAMS = {}
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """One side stream per device for every capture (a capture cannot run
+    on the default stream), so its library workspaces are made once."""
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device=device)
+    return _CAPTURE_STREAMS[device]
+
+
+class PredictGraphs:
+    """The CUDA graphs of one EvalState's predict, and their counter.
+
+    Key: the eager body (``_eval_model`` or ``_eval_model_var``), config,
+    data spec, query rows and dtype, calc_grad, calc_hess.  The first query
+    with a key warms up, captures and replays; later ones copy the query
+    into the graph's buffer and replay.  The graphs read the state's
+    factor and vectors and the training data in place: ``setup_eval``
+    factors on one device whatever the solver (``dense_dist`` included),
+    so no solve of the chain communicates.  They share one memory pool, as
+    they replay one after another on one stream, and go with their state.
+
+    ``counts``: captures, replays and eager calls (CPU tensors, autograd
+    on); the hit share is replays over all three (``graph_counts``)."""
+
+    def __init__(self):
+        self.entries = {}
+        self.pool = None
+        self.counts = {"captures": 0, "replays": 0, "eager": 0}
+
+    def replay(self, fn, cfg, spec, data, state, xq, calc_grad, calc_hess):
+        """Run fn at xq through its graph; the _Captured whose flat buffer
+        holds the outputs until the next replay of this state."""
+        key = (fn, cfg, spec, xq.shape[0], xq.dtype, calc_grad, calc_hess)
+        cap = self.entries.get(key)
+        if cap is not None and cap.data is data:
+            self.counts["replays"] += 1
+        else:
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            cap = _Captured(lambda x: fn(cfg, spec, data, state, x,
+                                         calc_grad, calc_hess),
+                            xq, data, self.pool)
+            self.entries[key] = cap
+            self.counts["captures"] += 1
+        cap.xq.copy_(xq)
+        cap.graph.replay()
+        return cap
+
+
 class EvalState(NamedTuple):
     """Cached quantities for surrogate evaluation."""
     ops: assembly.KetaOps       # varK-normalized factorization
     invK_fdiff: torch.Tensor    # Keta^-1 (y - m)
     hp: Hypers                  # with beta and varK filled in
     cond: torch.Tensor
+    pad_mask: Optional[torch.Tensor]  # spec.pad_mask() on the device
+    idx_grad: Optional[torch.Tensor]  # spec.idx_grad_arr on the device
+    graphs: PredictGraphs
+
+
+def graph_counts(state: EvalState) -> dict:
+    """Captures, replays and eager calls of the state's predict so far."""
+    return dict(state.graphs.counts)
 
 
 def _predict_dtype(cfg: GpConfig) -> torch.dtype:
@@ -62,30 +154,42 @@ def setup_eval(cfg: GpConfig, spec: DataSpec, data: GpData, hp: Hypers,
         varK=hp.varK if spec.b_has_noisy_data else None,
         factor_dtype=torch.float32 if cfg.n_refine_predict else None)
     data_vec = likelihood.make_data_vec(spec, data)
-    vand = mean.calc_aug_vand(cfg.mean_fun_type, data.x, spec.use_grad,
-                              spec.idx_grad_arr)
-    pad_mask = spec.pad_mask()
+    pad_mask, idx = spec_tensors(spec, data.x)
+    vand = mean.calc_aug_vand(cfg.mean_fun_type, data.x, spec.use_grad, idx)
     if pad_mask is not None:
-        mv = torch.as_tensor(pad_mask, dtype=vand.dtype, device=vand.device)
-        vand = vand * mv[:, None]
-        data_vec = data_vec * mv
+        vand = vand * pad_mask[:, None]
+        data_vec = data_vec * pad_mask
     invK_fdiff = _ops_solve(cfg, ops, data_vec - vand @ hp.beta)
     cond = (assembly.calc_cond(ops, cfg.cond_norm) if calc_cond
             else torch.tensor(float("nan")))
-    return EvalState(ops=ops, invK_fdiff=invK_fdiff, hp=hp, cond=cond)
+    return EvalState(ops=ops, invK_fdiff=invK_fdiff, hp=hp, cond=cond,
+                     pad_mask=pad_mask, idx_grad=idx, graphs=PredictGraphs())
 
 
-def _cross_cov(cfg: GpConfig, spec: DataSpec, x_train, xq, hp: Hypers):
+def spec_tensors(spec: DataSpec, x: torch.Tensor):
+    """(pad mask, gradient index): ``spec.pad_mask()`` in x's dtype and
+    ``spec.idx_grad_arr`` as longs, on x's device (None where the spec has
+    none).  Built once per state: a host-to-device copy cannot be captured
+    in a CUDA graph, and need not be repeated for every query."""
+    pad_mask, idx = spec.pad_mask(), spec.idx_grad_arr
+    if pad_mask is not None:
+        pad_mask = torch.as_tensor(pad_mask, dtype=x.dtype, device=x.device)
+    if idx is not None:
+        idx = torch.as_tensor(idx, device=x.device)
+    return pad_mask, idx
+
+
+def _cross_cov(cfg: GpConfig, spec: DataSpec, x_train, xq, hp: Hypers,
+               pad_mask: Optional[torch.Tensor],
+               idx: Optional[torch.Tensor]):
     """Kyx (n_data, nx) and dKxy_dx (nx*dim, n_data): cross covariance of the
     training data (values + used gradients) with the query points and with
-    the query-point derivatives.  Plain PyTorch, as the JAX package leaves
-    it to XLA (predict.py:81-93 there)."""
+    the query-point derivatives, with the pad mask and gradient index of
+    ``spec_tensors``.  Plain PyTorch, as the JAX package leaves it to XLA
+    (predict.py:81-93 there)."""
     R = rtensor.calc_rtensor(x_train, xq)
     G = kernels.kern_block_tensor(cfg.kernel_type, R, hp.theta, hp.kernel)
     dim = spec.dim
-    idx = spec.idx_grad_arr
-    if idx is not None:
-        idx = torch.as_tensor(idx, device=xq.device)
 
     def rows(col_block):
         blk = G[:, col_block]              # (1+d, n_train, nx)
@@ -98,11 +202,9 @@ def _cross_cov(cfg: GpConfig, spec: DataSpec, x_train, xq, hp: Hypers):
     Kyx = rows(0)
     dKxy_dx = torch.cat([rows(b).T for b in range(1, dim + 1)], dim=0)
 
-    pad_mask = spec.pad_mask()
     if pad_mask is not None:
-        mv = torch.as_tensor(pad_mask, dtype=Kyx.dtype, device=Kyx.device)
-        Kyx = Kyx * mv[:, None]
-        dKxy_dx = dKxy_dx * mv[None, :]
+        Kyx = Kyx * pad_mask[:, None]
+        dKxy_dx = dKxy_dx * pad_mask[None, :]
     return Kyx, dKxy_dx
 
 
@@ -114,7 +216,7 @@ def _hess_terms(cfg, spec, data, state, xq, Kxy_invK, dKxy_dx):
     N = spec.n_data_tot
     Rq = rtensor.calc_rtensor(xq, data.x)
     H = kernels.kern_hess_x(cfg.kernel_type, Rq, hp.theta, hp.kernel,
-                            use_grad=spec.use_grad, idx_g2=spec.idx_grad_arr)
+                            use_grad=spec.use_grad, idx_g2=state.idx_grad)
     Ht = H.reshape(dim, dim, nx, N)
     term1 = torch.einsum("kiqm,qm->qki", Ht, Kxy_invK)
     solve_dK = _ops_solve(cfg, state.ops, dKxy_dx.T)       # (n_data, nx*d)
@@ -124,11 +226,60 @@ def _hess_terms(cfg, spec, data, state, xq, Kxy_invK, dKxy_dx):
     return H, -2.0 * hp.varK * (term1 + term2h)
 
 
+def _predict(fn, cfg, spec, data, state, xq, calc_grad, calc_hess):
+    """fn's outputs at xq, tensors that the caller owns: through the state's
+    graphs on a CUDA device with autograd off, else eagerly (the module
+    note)."""
+    graphs = state.graphs
+    if not xq.is_cuda or torch.is_grad_enabled():
+        graphs.counts["eager"] += 1
+        return fn(cfg, spec, data, state, xq, calc_grad, calc_hess)
+    cap = graphs.replay(fn, cfg, spec, data, state, xq, calc_grad, calc_hess)
+    return tuple(_split(cap.flat.clone(), cap.shapes))
+
+
+def _split(flat, shapes):
+    """The consecutive pieces of flat (a tensor or numpy array) in the
+    given shapes; None where a shape is None."""
+    out, i = [], 0
+    for shape in shapes:
+        if shape is None:
+            out.append(None)
+            continue
+        n = math.prod(shape)
+        out.append(flat[i:i + n].reshape(shape))
+        i += n
+    return out
+
+
+def to_host(out) -> list:
+    """The tensors of out as numpy arrays (None kept), through one copy to
+    the host: they are gathered into one buffer on the device first."""
+    flat = torch.cat([v.reshape(-1) for v in out if v is not None])
+    return _split(flat.cpu().numpy(),
+                  [None if v is None else tuple(v.shape) for v in out])
+
+
 def eval_model(cfg: GpConfig, spec: DataSpec, data: GpData, state: EvalState,
                xq: torch.Tensor, calc_grad: bool = False,
                calc_hess: bool = False):
     """Returns (mu, sig, dmudx, dsigdx, d2mudx2, d2sigdx2) at the query
     points xq (nx, dim); derivative outputs are None unless requested."""
+    return _predict(_eval_model, cfg, spec, data, state, xq, calc_grad,
+                    calc_hess)
+
+
+def eval_model_var(cfg: GpConfig, spec: DataSpec, data: GpData,
+                   state: EvalState, xq: torch.Tensor,
+                   calc_grad: bool = False, calc_hess: bool = False):
+    """Variance (not std) and its derivatives: (sig2, dsig2dx, d2sig2dx2),
+    None where not requested."""
+    return _predict(_eval_model_var, cfg, spec, data, state, xq, calc_grad,
+                    calc_hess)
+
+
+def _eval_model(cfg, spec, data, state, xq, calc_grad, calc_hess):
+    """The eager body of ``eval_model``."""
     hp = state.hp
     nx, dim = xq.shape
     dt = _predict_dtype(cfg)
@@ -136,7 +287,8 @@ def eval_model(cfg: GpConfig, spec: DataSpec, data: GpData, state: EvalState,
     varK = hp.varK
     sigK = torch.sqrt(varK)
 
-    Kyx, dKxy_dx = _cross_cov(cfg, spec, data.x, xq, hp)
+    Kyx, dKxy_dx = _cross_cov(cfg, spec, data.x, xq, hp, state.pad_mask,
+                              state.idx_grad)
     Kxy_invK = _ops_solve(cfg, state.ops, Kyx).T          # (nx, n_data)
     mval, mgrad, mhess = mean.eval_mean_fun(cfg.mean_fun_type, xq, hp.beta)
 
@@ -166,17 +318,16 @@ def eval_model(cfg: GpConfig, spec: DataSpec, data: GpData, state: EvalState,
     return mu, sig, dmudx, dsigdx, d2mudx2, d2sigdx2
 
 
-def eval_model_var(cfg: GpConfig, spec: DataSpec, data: GpData,
-                   state: EvalState, xq: torch.Tensor,
-                   calc_grad: bool = False, calc_hess: bool = False):
-    """Variance (not std) and its derivatives."""
+def _eval_model_var(cfg, spec, data, state, xq, calc_grad, calc_hess):
+    """The eager body of ``eval_model_var``."""
     hp = state.hp
     nx, dim = xq.shape
     dt = _predict_dtype(cfg)
     data, xq = cast_float_tree(data, dt), xq.to(dt)
     varK = hp.varK
 
-    Kyx, dKxy_dx = _cross_cov(cfg, spec, data.x, xq, hp)
+    Kyx, dKxy_dx = _cross_cov(cfg, spec, data.x, xq, hp, state.pad_mask,
+                              state.idx_grad)
     Kxy_invK = _ops_solve(cfg, state.ops, Kyx).T
     sig2 = varK * torch.clamp_min(1.0 - torch.sum(Kyx.T * Kxy_invK, dim=1), 0.0)
 

@@ -190,8 +190,7 @@ def kern_hess_x(kernel_type: str, R, theta, alpha=None, use_grad: bool = True,
     term_ik = -4.0 * d_ik * (th[:, None, None, None, None] * Tj) * phi2
     grad_cols = -8.0 * Ti * Tj * Tk * phi3 + term_ij + term_kj + term_ik
     if idx_g2 is not None:
-        grad_cols = grad_cols[..., torch.as_tensor(np.asarray(idx_g2),
-                                                   device=R.device)]
+        grad_cols = grad_cols[..., torch.as_tensor(idx_g2, device=R.device)]
     n2g = grad_cols.shape[-1]
     grad_cols = grad_cols.permute(0, 1, 3, 2, 4).reshape(dim, dim * n1, dim * n2g)
     return torch.cat([val_cols, grad_cols], dim=2)
