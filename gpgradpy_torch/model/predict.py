@@ -13,6 +13,14 @@ replay a CUDA graph of their own eager body (``PredictGraphs``): a query of
 a few rows is ~80 small kernels behind ~270 torch calls on the host, and
 the replay issues them in one call.  Elsewhere (CPU tensors, autograd on)
 the eager body runs as it is.
+
+Before a state's first capture, ``PredictGraphs.build_inverse`` keeps the
+inverse of its Cholesky factor where the factor is float64; every later
+query of that state, graphed or eager, then solves against Keta through
+matrix products with it (``_solve``): cuBLAS's triangular solves with a
+few right-hand sides run one dependent block step after another, a
+product with L^-1 has no such chain and, at N ~ 2000, reads an operand
+that stays in the L2 cache from one query to the next.
 """
 
 from __future__ import annotations
@@ -66,24 +74,45 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
 
 
 class PredictGraphs:
-    """The CUDA graphs of one EvalState's predict, and their counter.
+    """The CUDA graphs of one EvalState's predict, the inverse of its
+    factor, and their counter.
 
     Key: the eager body (``_eval_model`` or ``_eval_model_var``), config,
     data spec, query rows and dtype, calc_grad, calc_hess.  The first query
     with a key warms up, captures and replays; later ones copy the query
     into the graph's buffer and replay.  The graphs read the state's
-    factor and vectors and the training data in place: ``setup_eval``
-    factors on one device whatever the solver (``dense_dist`` included),
-    so no solve of the chain communicates.  They share one memory pool, as
-    they replay one after another on one stream, and go with their state.
+    factor or its inverse, its vectors and the training data in place:
+    ``setup_eval`` factors on one device whatever the solver
+    (``dense_dist`` included), so no solve of the chain communicates.
+    They share one memory pool, as they replay one after another on one
+    stream, and go with their state.
+
+    ``linv``: the inverse of the state's factor, once ``build_inverse``
+    has kept it (None before, and always where it keeps none).
 
     ``counts``: captures, replays and eager calls (CPU tensors, autograd
-    on); the hit share is replays over all three (``graph_counts``)."""
+    on), whose hit share is replays over all three, and inverse builds (0
+    or 1) (``graph_counts``)."""
 
     def __init__(self):
         self.entries = {}
         self.pool = None
-        self.counts = {"captures": 0, "replays": 0, "eager": 0}
+        self.linv = None
+        self.counts = {"captures": 0, "replays": 0, "eager": 0,
+                       "inverse_builds": 0}
+
+    def build_inverse(self, ops):
+        """Keep L^-1 of the factor of ops (one triangular solve against the
+        identity, ~N^3/3 operations and an N x N tensor) unless kept
+        already, or unless the factor is not float64: an f32 factor, whose
+        inverse's accuracy at cond 1e10 is not established, and the
+        refined predict's f32 factor keep their solves."""
+        L = ops.fac.L
+        if self.linv is not None or L.dtype != torch.float64:
+            return
+        eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+        self.linv = torch.linalg.solve_triangular(L, eye, upper=False)
+        self.counts["inverse_builds"] += 1
 
     def replay(self, fn, cfg, spec, data, state, xq, calc_grad, calc_hess):
         """Run fn at xq through its graph; the _Captured whose flat buffer
@@ -95,6 +124,7 @@ class PredictGraphs:
         else:
             if self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
+            self.build_inverse(state.ops)
             cap = _Captured(lambda x: fn(cfg, spec, data, state, x,
                                          calc_grad, calc_hess),
                             xq, data, self.pool)
@@ -117,7 +147,8 @@ class EvalState(NamedTuple):
 
 
 def graph_counts(state: EvalState) -> dict:
-    """Captures, replays and eager calls of the state's predict so far."""
+    """Captures, replays, eager calls and inverse builds of the state's
+    predict so far."""
     return dict(state.graphs.counts)
 
 
@@ -141,6 +172,25 @@ def _ops_solve(cfg: GpConfig, ops: assembly.KetaOps,
                                 cfg.n_refine_predict) / p
         return y[..., 0] if vec else y
     return ops.solve(b)
+
+
+def _solve(cfg: GpConfig, state: EvalState, b: torch.Tensor) -> torch.Tensor:
+    """Keta^-1 b for b (n, k) in a query of the state.  Where the state
+    keeps L^-1 (``PredictGraphs.build_inverse``): M^-1 = L^-T L^-1 as two
+    matrix products (L^-T a transposed view), then one step of refinement
+    against M.  The computed inverse carries errors of ~eps |L^-1| |L|
+    |L^-1|, which a product with b near a column of M turns into errors
+    up to cond(L) times those of a substitution (sig^2 near the data); the
+    step brings them back to the residual's rounding.  Else
+    ``_ops_solve``."""
+    linv = state.graphs.linv
+    if linv is None:
+        return _ops_solve(cfg, state.ops, b)
+    p = state.ops.pvec[:, None]
+    rhs = b / p
+    y = linv.T @ (linv @ rhs)
+    y = y + linv.T @ (linv @ (rhs - state.ops.M @ y))
+    return y / p
 
 
 def setup_eval(cfg: GpConfig, spec: DataSpec, data: GpData, hp: Hypers,
@@ -219,7 +269,7 @@ def _hess_terms(cfg, spec, data, state, xq, Kxy_invK, dKxy_dx):
                             use_grad=spec.use_grad, idx_g2=state.idx_grad)
     Ht = H.reshape(dim, dim, nx, N)
     term1 = torch.einsum("kiqm,qm->qki", Ht, Kxy_invK)
-    solve_dK = _ops_solve(cfg, state.ops, dKxy_dx.T)       # (n_data, nx*d)
+    solve_dK = _solve(cfg, state, dKxy_dx.T)               # (n_data, nx*d)
     D = dKxy_dx.reshape(dim, nx, N)
     S = solve_dK.T.reshape(dim, nx, N)
     term2h = torch.einsum("kqm,iqm->qki", D, S)
@@ -289,7 +339,7 @@ def _eval_model(cfg, spec, data, state, xq, calc_grad, calc_hess):
 
     Kyx, dKxy_dx = _cross_cov(cfg, spec, data.x, xq, hp, state.pad_mask,
                               state.idx_grad)
-    Kxy_invK = _ops_solve(cfg, state.ops, Kyx).T          # (nx, n_data)
+    Kxy_invK = _solve(cfg, state, Kyx).T                  # (nx, n_data)
     mval, mgrad, mhess = mean.eval_mean_fun(cfg.mean_fun_type, xq, hp.beta)
 
     mu = mval + Kyx.T @ state.invK_fdiff
@@ -328,7 +378,7 @@ def _eval_model_var(cfg, spec, data, state, xq, calc_grad, calc_hess):
 
     Kyx, dKxy_dx = _cross_cov(cfg, spec, data.x, xq, hp, state.pad_mask,
                               state.idx_grad)
-    Kxy_invK = _ops_solve(cfg, state.ops, Kyx).T
+    Kxy_invK = _solve(cfg, state, Kyx).T
     sig2 = varK * torch.clamp_min(1.0 - torch.sum(Kyx.T * Kxy_invK, dim=1), 0.0)
 
     dsig2dx = d2sig2dx2 = None

@@ -10,7 +10,9 @@ sends (1-17), with and without gradients and Hessians, for eval_model and
 eval_model_var, under ``precon``, ``rescale_origin``, a padded partial
 gradient set and the refined predict; a call's results survive the next
 call; the counter shows one capture per key and replays after it, and a
-new state starts a fresh count.
+new state starts a fresh count.  The graphed predict, which solves through
+the inverse of the factor that a float64 state keeps from its first
+capture, stays within the factor solves' own rounding, also at N 1771.
 
     python -m pytest tests/test_torch_predict_graph.py -q -m card
 """
@@ -67,6 +69,21 @@ def _args(gp):
     return gp.cfg_predict, gp.spec, gp.data, gp._eval_state
 
 
+def _accurate_solve(cfg, ops, b):
+    """Keta^-1 b refined to the rounding of long double (80-bit on
+    x86-64): factor solves of residuals taken in long double on the host;
+    on b's device."""
+    L = ops.fac.L.cpu().double()
+    M = ops.M.cpu().numpy().astype(np.longdouble)
+    p = ops.pvec.cpu().numpy().astype(np.longdouble)[:, None]
+    rhs = b.cpu().numpy().astype(np.longdouble) / p
+    y = np.zeros_like(rhs)
+    for _ in range(4):
+        r = torch.as_tensor((rhs - M @ y).astype(np.float64))
+        y = y + torch.cholesky_solve(r, L).numpy().astype(np.longdouble)
+    return torch.as_tensor((y / p).astype(np.float64), device=b.device)
+
+
 # ---------------------------------------------------------------------------
 # CPU
 # ---------------------------------------------------------------------------
@@ -77,7 +94,7 @@ def test_cpu_counter_reports_only_eager_calls(wellcond):
     gp = _fit(2, 8, wellcond, device="cpu", **kw)
     state = gp._eval_state
     assert predict.graph_counts(state) == {"captures": 0, "replays": 0,
-                                           "eager": 0}
+                                           "eager": 0, "inverse_builds": 0}
     x = np.random.default_rng(1).uniform(-2.0, 2.0, (3, 2))
     gp.eval_model(x, calc_grad=True)
     gp.eval_model(x, calc_grad=True, calc_hess=True)
@@ -88,7 +105,7 @@ def test_cpu_counter_reports_only_eager_calls(wellcond):
     loop.acq_objective(gp, "ei", 2.0, 1.0)(xs)
     n = 5 if wellcond == "precon" else 4
     assert predict.graph_counts(state) == {"captures": 0, "replays": 0,
-                                           "eager": n}
+                                           "eager": n, "inverse_builds": 0}
 
 
 def test_to_host_equals_a_copy_of_each_output():
@@ -150,6 +167,11 @@ MODELS = {
 }
 
 
+# n_eval of a model where it is not 30 (N = 11 n_eval): the size of the
+# benchmark's predict cell, as a precon model
+N_EVAL = {"precon-1771": 161}
+
+
 @pytest.fixture(scope="module")
 def models():
     return {}
@@ -157,7 +179,7 @@ def models():
 
 def _model(models, name):
     if name not in models:
-        models[name] = _fit(10, 30, **MODELS[name])
+        models[name] = _fit(10, N_EVAL.get(name, 30), **MODELS.get(name, {}))
     return models[name]
 
 
@@ -205,6 +227,53 @@ def test_graph_equals_eager_on_the_card(card, models, name):
                                    atol=1e-14 * np.abs(w).max())
 
 
+@pytest.mark.card
+@pytest.mark.parametrize("name", sorted(MODELS) + sorted(N_EVAL))
+def test_inverse_solve_equals_factor_solve_on_the_card(card, models, name,
+                                                       monkeypatch):
+    """The graphed predict of a float64 state, which solves through the
+    inverse its first capture kept, against the eager body of the same
+    state without it (the factor solves), each output as its largest gap
+    over its largest value, m 1-17, every flag, both bodies: <= 1e-7, as
+    on the CPU (tests/test_torch_predict_inverse.py), where the gap is the
+    two paths' own rounding at cond(M) ~1e10.  And mu, sig and their
+    gradients against a solve refined in long double: the inverse's error
+    at most 4 times the factor solve's, plus 1e-13.  The refined predict
+    keeps no inverse."""
+    gp = _model(models, name)
+    cfg, spec, data, state = _args(gp)
+    factor = state._replace(graphs=predict.PredictGraphs())
+    gap = err_inv = err_fac = 0.0
+    with torch.no_grad():
+        for m in range(1, 18):
+            xq = _query(gp, m, 300 + m)
+            for calc_grad, calc_hess in FLAGS:
+                for fn, body in ((predict.eval_model, predict._eval_model),
+                                 (predict.eval_model_var,
+                                  predict._eval_model_var)):
+                    got = fn(cfg, spec, data, state, xq, calc_grad, calc_hess)
+                    want = body(cfg, spec, data, factor, xq, calc_grad,
+                                calc_hess)
+                    for g, w in zip(got, want):
+                        gap = max(gap, _rel(g, w))
+            got = predict.eval_model(cfg, spec, data, state, xq, True)
+            fac = predict._eval_model(cfg, spec, data, factor, xq, True, False)
+            with monkeypatch.context() as mp:
+                mp.setattr(predict, "_ops_solve", _accurate_solve)
+                ref = predict._eval_model(cfg, spec, data, factor, xq, True,
+                                          False)
+            for g, f, r in zip(got, fac, ref):
+                err_inv = max(err_inv, _rel(g, r))
+                err_fac = max(err_fac, _rel(f, r))
+    builds = predict.graph_counts(state)["inverse_builds"]
+    print(f"[inverse] {name} N {spec.n_data_tot} inverse_builds {builds} "
+          f"gap {gap:.3e} error: inverse {err_inv:.3e} factor {err_fac:.3e}")
+    assert builds == (0 if name == "refined" else 1)
+    assert (state.graphs.linv is None) == (name == "refined")
+    assert gap <= 1e-7, gap
+    assert err_inv <= 4.0 * err_fac + 1e-13, (err_inv, err_fac)
+
+
 def _query_init(gp, x):
     return torch.as_tensor(gp.x_init_2_scl(x), dtype=gp._predict_dtype,
                            device=gp.device)
@@ -241,22 +310,23 @@ def test_counter_captures_once_per_key_on_the_card(card, models):
     gp.set_hpara("current", 0)          # a fresh state
     state = gp._eval_state
     assert predict.graph_counts(state) == {"captures": 0, "replays": 0,
-                                           "eager": 0}
+                                           "eager": 0, "inverse_builds": 0}
     x3 = np.random.default_rng(3).uniform(-2.0, 2.0, (3, 10))
     for _ in range(4):
         gp.eval_model(x3, calc_grad=True)
     assert predict.graph_counts(state) == {"captures": 1, "replays": 3,
-                                           "eager": 0}
+                                           "eager": 0, "inverse_builds": 1}
     gp.eval_model(x3[:2], calc_grad=True)         # another row count
     gp.eval_model(x3, calc_grad=False)            # another flag
     gp.eval_model_var(x3, calc_grad=True)         # another variant
     gp.eval_model(x3, calc_grad=True)
     assert predict.graph_counts(state) == {"captures": 4, "replays": 4,
-                                           "eager": 0}
+                                           "eager": 0, "inverse_builds": 1}
     with torch.enable_grad():                     # autograd on: eager
         predict.eval_model(*_args(gp), _query(gp, 3, 4), calc_grad=True)
     assert predict.graph_counts(state)["eager"] == 1
     gp.set_hpara("current", 0)
     assert gp._eval_state is not state
     assert predict.graph_counts(gp._eval_state) == {"captures": 0,
-                                                    "replays": 0, "eager": 0}
+                                                    "replays": 0, "eager": 0,
+                                                    "inverse_builds": 0}

@@ -5,9 +5,12 @@ Fits the d=10 Rosenbrock (a=10) at n_eval points of a Latin hypercube
 the median host time of one ``eval_model(x, calc_grad=True)`` through the
 facade (a graph replay), of the eager body with the four outputs copied to
 the host one by one (the facade's path without the graphs), and of the
-first call of a new key on a fresh state (warm-up, capture, first replay).
-Then the graph counter, and the device time the profiler sees in a window
-of replays (kernels inside a graph replay are traced as kernels).
+first call of a new key on a fresh state (warm-up, capture, first replay;
+at m = 1 also the build of the inverse of the factor that the state keeps).
+Then the graph counter, the time of one build of that inverse, and the
+device time the profiler sees in a window of replays, with the kernels
+that take most of it (kernels inside a graph replay are traced as
+kernels).
 
     python3 tools/predict_graph_cost.py [--n-eval 161] [--reps 41]
 """
@@ -84,6 +87,15 @@ def main():
         print(f"{m} {1e3 * statistics.median(t_g):.4f} "
               f"{1e3 * statistics.median(t_e):.4f} {1e3 * first:.3f}")
     print("[counts]", predict.graph_counts(gp._eval_state))
+    ops, t_inv = gp._eval_state.ops, []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predict.PredictGraphs().build_inverse(ops)
+        torch.cuda.synchronize()
+        t_inv.append(time.perf_counter() - t0)
+    print(f"[inverse] N {ops.fac.L.shape[-1]} build ms: first "
+          f"{1e3 * t_inv[0]:.3f}, median {1e3 * statistics.median(t_inv):.3f}")
 
     from torch.profiler import ProfilerActivity, profile
     qs = [rng.uniform(-2.0, 2.0, (4, d)) for _ in range(50)]
@@ -99,6 +111,12 @@ def main():
     busy = sum(e.time_range.end - e.time_range.start for e in dev) / 1e3
     print(f"[profile] 50 replays at m=4: {len(dev)} device events, "
           f"{busy:.3f} ms device (summed), {1e3 * wall:.3f} ms wall")
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + (e.time_range.end - e.time_range.start) / 1e3)
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"[profile]   {ms:8.3f} ms  {name[:90]}")
 
 
 if __name__ == "__main__":
