@@ -179,7 +179,7 @@ class GaussianProcess:
         f64 predict)."""
         if self.cfg.solver == "iterative":
             return self.dtype
-        return predict._predict_dtype(self.cfg_predict)
+        return predict.predict_dtype(self.cfg_predict)
 
     def _eta_for_predict(self) -> float:
         """The predict's nugget: at the polish target when the polish is
@@ -673,10 +673,12 @@ class GaussianProcess:
         assert self.hp_vals is self._hp_vals_model_setup, \
             "Cannot change hp_vals between setup_eval_model() and eval_model()"
 
-    def _query(self, x2model_in, squeeze_nx):
+    def _query(self, x2model_in, squeeze_nx, calc_hess=False):
         """Query points (init frame, host) -> working-frame tensor of the
-        predict's dtype."""
+        predict's dtype; the iterative solver has no Hessians."""
         self._check_eval_ready()
+        if calc_hess and self.cfg.solver == "iterative":
+            raise NotImplementedError(_NO_HESS)
         xq = np.atleast_2d(np.asarray(x2model_in, float))
         if squeeze_nx:
             assert xq.shape[0] == 1
@@ -703,10 +705,8 @@ class GaussianProcess:
                    squeeze_nx=False):
         if calc_hess:
             assert calc_grad, "calc_hess requires calc_grad"
-        xq = self._query(x2model_in, squeeze_nx)
+        xq = self._query(x2model_in, squeeze_nx, calc_hess)
         if self.cfg.solver == "iterative":
-            if calc_hess:
-                raise NotImplementedError(_NO_HESS)
             out = (*self._eval_iterative(xq, calc_grad), None, None)
         else:
             with torch.no_grad():
@@ -724,10 +724,8 @@ class GaussianProcess:
         """Variance (not std) and its derivatives.  Under a rescaling frame
         var_init = var_scl / obj_scale^2 with a 1/xvec_scale factor per
         x-derivative, as in the JAX package."""
-        xq = self._query(x2model_in, squeeze_nx)
+        xq = self._query(x2model_in, squeeze_nx, calc_hess)
         if self.cfg.solver == "iterative":
-            if calc_hess:
-                raise NotImplementedError(_NO_HESS)
             _, sig, _, dsig = self._eval_iterative(xq, calc_grad)
             out = (sig ** 2, None if dsig is None else 2.0 * sig[:, None] * dsig,
                    None)
@@ -814,9 +812,9 @@ class GaussianProcess:
         """Scaled-frame twin of ``calc_model_mean_w_data_init``: query points
         and data are already in the rescaling frame; mu (and dmu/dx) come
         back in the init frame.  Without a rescaling the frames coincide.
-        Uses the cached factorization's solve (refined where the predict
-        refines) and the predictor's cross covariance on the model's
-        device, at the predict's precision; returns numpy arrays."""
+        Uses the predict state's solve (``predict.choose_solve``) and the
+        predictor's cross covariance on the model's device, at the
+        predict's precision; returns numpy arrays."""
         self._check_eval_ready()
         cfg, spec, state = self.cfg_predict, self.spec, self._eval_state
         hp, dt = state.hp, self._predict_dtype
@@ -828,10 +826,9 @@ class GaussianProcess:
                 None if grad_scl is None else self._tensor(grad_scl, dt))
             vand = mean.calc_aug_vand(cfg.mean_fun_type, x, spec.use_grad,
                                       spec.idx_grad_arr)
-            sol = predict._ops_solve(cfg, state.ops,
-                                     data_vec - vand @ hp.beta)
-            Kyx, dKxy_dx = predict._cross_cov(cfg, spec, x, xq, hp,
-                                              state.pad_mask, state.idx_grad)
+            sol = state.solve((data_vec - vand @ hp.beta)[:, None])[:, 0]
+            Kyx, dKxy_dx = predict.cross_cov(cfg, spec, x, xq, hp,
+                                             state.pad_mask, state.idx_grad)
             mval, mgrad, _ = mean.eval_mean_fun(cfg.mean_fun_type, xq,
                                                 hp.beta)
             mu = (mval + Kyx.T @ sol).cpu().numpy()

@@ -91,7 +91,7 @@ def run_point(mesh, chains, samples, warmup, starts):
         _sync(mesh.device)
         return out, time.perf_counter() - t0
 
-    (zs, _), nuts_s = timed(lambda: run_nuts_sharded(
+    (zs, diag), nuts_s = timed(lambda: run_nuts_sharded(
         logpost, z0, 1, mesh, n_warmup=warmup, n_samples=samples,
         max_depth=6))
     res, fit_s = timed(lambda: lbfgs_sharded(obj, x0, lb, ub, mesh,
@@ -99,6 +99,7 @@ def run_point(mesh, chains, samples, warmup, starts):
     return {"nuts_samples_per_s": chains * samples / nuts_s,
             "fit_starts_per_s": starts / fit_s, "nuts_s": nuts_s,
             "fit_s": fit_s, "nuts_mean_z": zs.mean((0, 1)).cpu().tolist(),
+            "nuts_n_leapfrog": diag["n_leapfrog"].cpu().tolist(),
             "fit_best_f": float(np.min(res.f)),
             # this rank's K1/K2 launches over the four runs (0 on the CPU)
             "launches": {"K1": cuda_assembly.kern_grad.launches,

@@ -173,7 +173,7 @@ def assemble_keta(cfg: GpConfig, spec: DataSpec, data: GpData, hp: Hypers,
     ``factor_dtype`` (torch.float32) factorizes a downcast copy of M and
     keeps M itself in the assembly precision: the refined predict's mode,
     whose solves refine against the full-precision M
-    (``predict._ops_solve``).  The low-precision Cholesky's ok flag and
+    (``predict.choose_solve``).  The low-precision Cholesky's ok flag and
     identity fallback are those of the dense path.
 
     ``mesh`` (a ``parallel.mesh.Mesh``) factors M with the distributed

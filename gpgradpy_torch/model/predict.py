@@ -2,137 +2,135 @@
 second derivatives at query points (counterpart of
 ``gpgradpy_tpu/model/predict.py``), for one hyperparameter row.
 
-Precision: the predict runs in ``_predict_dtype(cfg)``.  With
+Precision: the predict runs in ``predict_dtype(cfg)``.  With
 ``cfg.dtype == 'float64'`` f32 inputs are promoted (the polish mode, whose
 main fit ran in f32); with ``cfg.n_refine_predict`` the covariance is
-assembled in f64 and factorized in f32, and every predict solve refines
-against the f64 matrix (``_ops_solve``).
+assembled in f64 and factorized in f32.
+
+``setup_eval`` chooses each state's solve of Keta once (``choose_solve``):
+an f32 factor of an f64 M refines against M; a float64 factor on a CUDA
+device solves through L^-1 (``InverseSolve``), as cuBLAS's triangular
+solves with a few right-hand sides run one dependent block step after
+another, where a product with L^-1 has no such chain and, at N ~ 2000,
+reads an operand that stays in the L2 cache between queries; anything else
+solves through the factor.
 
 On a CUDA device with autograd off, ``eval_model`` and ``eval_model_var``
 replay a CUDA graph of their own eager body (``PredictGraphs``): a query of
 a few rows is ~80 small kernels behind ~270 torch calls on the host, and
-the replay issues them in one call.  Elsewhere (CPU tensors, autograd on)
-the eager body runs as it is.
-
-Before a state's first capture, ``PredictGraphs.build_inverse`` keeps the
-inverse of its Cholesky factor where the factor is float64; every later
-query of that state, graphed or eager, then solves against Keta through
-matrix products with it (``_solve``): cuBLAS's triangular solves with a
-few right-hand sides run one dependent block step after another, a
-product with L^-1 has no such chain and, at N ~ 2000, reads an operand
-that stays in the L2 cache from one query to the next.
+the replay issues them in one call.  Elsewhere the eager body runs.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from ..config import GpConfig
-from ..ops import kernels, linalg, rtensor
+from ..ops import graphs, kernels, linalg, rtensor
 from ..types import DataSpec, GpData, Hypers, cast_float_tree
 from . import assembly, likelihood, mean
 
 
 class _Captured:
     """One captured predict: the query buffer it reads, its outputs packed
-    into one flat buffer and their shapes (None where not computed), and
-    the training data whose memory the graph reads."""
+    into one flat buffer and their shapes (``_pack``), and the training
+    data whose memory the graph reads."""
 
     def __init__(self, run, xq: torch.Tensor, data: GpData, pool):
-        self.data = data
-        self.xq = xq.clone()
-        self.graph = torch.cuda.CUDAGraph()
-        side = _capture_stream(xq.device)
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            # warm-up on the capture stream: its cuBLAS / cuSOLVER handles
-            # and workspaces exist before the capture
-            run(self.xq)
-            self.graph.capture_begin(pool=pool)
-            try:
-                outs = run(self.xq)
-                self.flat = torch.cat([v.reshape(-1) for v in outs
-                                       if v is not None])
-            finally:
-                self.graph.capture_end()
-        torch.cuda.current_stream().wait_stream(side)
-        self.shapes = [None if v is None else tuple(v.shape) for v in outs]
-
-
-_CAPTURE_STREAMS = {}
-
-
-def _capture_stream(device: torch.device) -> torch.cuda.Stream:
-    """One side stream per device for every capture (a capture cannot run
-    on the default stream), so its library workspaces are made once."""
-    if device not in _CAPTURE_STREAMS:
-        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device=device)
-    return _CAPTURE_STREAMS[device]
+        self.data, self.xq = data, xq.clone()
+        with graphs.on_side(xq.device):
+            run(self.xq)      # the warm-up; it also builds the state's L^-1
+            self.graph, (self.flat, self.shapes) = graphs.capture(
+                lambda: _pack(run(self.xq)), pool)
 
 
 class PredictGraphs:
-    """The CUDA graphs of one EvalState's predict, the inverse of its
-    factor, and their counter.
+    """The CUDA graphs of one EvalState's predict and their counter.
 
     Key: the eager body (``_eval_model`` or ``_eval_model_var``), config,
     data spec, query rows and dtype, calc_grad, calc_hess.  The first query
     with a key warms up, captures and replays; later ones copy the query
     into the graph's buffer and replay.  The graphs read the state's
-    factor or its inverse, its vectors and the training data in place:
-    ``setup_eval`` factors on one device whatever the solver
-    (``dense_dist`` included), so no solve of the chain communicates.
-    They share one memory pool, as they replay one after another on one
-    stream, and go with their state.
-
-    ``linv``: the inverse of the state's factor, once ``build_inverse``
-    has kept it (None before, and always where it keeps none).
+    factor or L^-1, its vectors and the training data in place (factored
+    on one device whatever the solver, so no solve communicates), share one
+    memory pool, as they replay in turn on one stream, and go with their
+    state.
 
     ``counts``: captures, replays and eager calls (CPU tensors, autograd
-    on), whose hit share is replays over all three, and inverse builds (0
-    or 1) (``graph_counts``)."""
+    on), and the builds of the state's L^-1 (``graph_counts``)."""
 
     def __init__(self):
         self.entries = {}
         self.pool = None
-        self.linv = None
         self.counts = {"captures": 0, "replays": 0, "eager": 0,
                        "inverse_builds": 0}
 
-    def build_inverse(self, ops):
-        """Keep L^-1 of the factor of ops (one triangular solve against the
-        identity, ~N^3/3 operations and an N x N tensor) unless kept
-        already, or unless the factor is not float64: an f32 factor, whose
-        inverse's accuracy at cond 1e10 is not established, and the
-        refined predict's f32 factor keep their solves."""
-        L = ops.fac.L
-        if self.linv is not None or L.dtype != torch.float64:
-            return
-        eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
-        self.linv = torch.linalg.solve_triangular(L, eye, upper=False)
-        self.counts["inverse_builds"] += 1
-
     def replay(self, fn, cfg, spec, data, state, xq, calc_grad, calc_hess):
-        """Run fn at xq through its graph; the _Captured whose flat buffer
-        holds the outputs until the next replay of this state."""
+        """fn's outputs at xq through its graph, copies the caller owns."""
         key = (fn, cfg, spec, xq.shape[0], xq.dtype, calc_grad, calc_hess)
         cap = self.entries.get(key)
         if cap is not None and cap.data is data:
             self.counts["replays"] += 1
         else:
-            if self.pool is None:
-                self.pool = torch.cuda.graph_pool_handle()
-            self.build_inverse(state.ops)
             cap = _Captured(lambda x: fn(cfg, spec, data, state, x,
                                          calc_grad, calc_hess),
                             xq, data, self.pool)
+            self.pool = cap.graph.pool()      # the first graph's, shared
             self.entries[key] = cap
             self.counts["captures"] += 1
         cap.xq.copy_(xq)
         cap.graph.replay()
-        return cap
+        return _split(cap.flat.clone(), cap.shapes)
+
+
+class InverseSolve:
+    """Keta^-1 b for b (n, k) through the inverse of the factor: M^-1 =
+    L^-T L^-1 as two matrix products (L^-T a transposed view), then one
+    step of refinement against M.  The computed inverse carries errors of
+    ~eps |L^-1| |L| |L^-1|, which a product with b near a column of M turns
+    into errors up to cond(L) times those of a substitution (sig^2 near the
+    data); the step brings them back to the residual's rounding.
+
+    L^-1 (~N^3/3 operations, N x N) is built on the first call, never for
+    a state without queries, and counted in ``counts["inverse_builds"]``."""
+
+    def __init__(self, ops: assembly.KetaOps, counts: dict):
+        self.ops, self.counts, self.linv = ops, counts, None
+
+    def __call__(self, b: torch.Tensor) -> torch.Tensor:
+        L, p = self.ops.fac.L, self.ops.pvec[:, None]
+        if self.linv is None:
+            eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+            self.linv = torch.linalg.solve_triangular(L, eye, upper=False)
+            self.counts["inverse_builds"] += 1
+        linv, rhs = self.linv, b / p
+        y = linv.T @ (linv @ rhs)
+        y = y + linv.T @ (linv @ (rhs - self.ops.M @ y))
+        return y / p
+
+
+def _refined_solve(ops: assembly.KetaOps, n_refine: int,
+                   b: torch.Tensor) -> torch.Tensor:
+    """Keta^-1 b for b (n, k) through the low-precision factor, refined
+    ``n_refine`` times against the full-precision M."""
+    p = ops.pvec[:, None]
+    return linalg.refine_solve(ops.fac, ops.M, b / p, n_refine) / p
+
+
+def choose_solve(cfg: GpConfig, ops: assembly.KetaOps,
+                 counts: dict) -> Callable:
+    """The state's solve of Keta (the module note): refined for a factor
+    below M's precision, L^-1 for a float64 factor on a CUDA device."""
+    L = ops.fac.L
+    if cfg.n_refine_predict and L.dtype != ops.M.dtype:
+        return functools.partial(_refined_solve, ops, cfg.n_refine_predict)
+    if L.dtype == torch.float64 and L.device.type == "cuda":
+        return InverseSolve(ops, counts)
+    return ops.solve
 
 
 class EvalState(NamedTuple):
@@ -144,6 +142,7 @@ class EvalState(NamedTuple):
     pad_mask: Optional[torch.Tensor]  # spec.pad_mask() on the device
     idx_grad: Optional[torch.Tensor]  # spec.idx_grad_arr on the device
     graphs: PredictGraphs
+    solve: Callable             # Keta^-1 b for b (n, k) (choose_solve)
 
 
 def graph_counts(state: EvalState) -> dict:
@@ -152,52 +151,19 @@ def graph_counts(state: EvalState) -> dict:
     return dict(state.graphs.counts)
 
 
-def _predict_dtype(cfg: GpConfig) -> torch.dtype:
+def predict_dtype(cfg: GpConfig) -> torch.dtype:
     """f64 when the config says so or when the refined predict is on."""
     if cfg.dtype == "float64" or cfg.n_refine_predict:
         return torch.float64
     return torch.float32
 
 
-def _ops_solve(cfg: GpConfig, ops: assembly.KetaOps,
-               b: torch.Tensor) -> torch.Tensor:
-    """Keta^-1 b for b (n,) or (n, k); with iterative refinement against
-    the full-precision M when the factor was taken in a lower precision
-    (cfg.n_refine_predict > 0)."""
-    if cfg.n_refine_predict and ops.fac.L.dtype != ops.M.dtype:
-        vec = b.ndim == ops.pvec.ndim
-        rhs = b[..., None] if vec else b
-        p = ops.pvec[..., :, None]
-        y = linalg.refine_solve(ops.fac, ops.M, rhs / p,
-                                cfg.n_refine_predict) / p
-        return y[..., 0] if vec else y
-    return ops.solve(b)
-
-
-def _solve(cfg: GpConfig, state: EvalState, b: torch.Tensor) -> torch.Tensor:
-    """Keta^-1 b for b (n, k) in a query of the state.  Where the state
-    keeps L^-1 (``PredictGraphs.build_inverse``): M^-1 = L^-T L^-1 as two
-    matrix products (L^-T a transposed view), then one step of refinement
-    against M.  The computed inverse carries errors of ~eps |L^-1| |L|
-    |L^-1|, which a product with b near a column of M turns into errors
-    up to cond(L) times those of a substitution (sig^2 near the data); the
-    step brings them back to the residual's rounding.  Else
-    ``_ops_solve``."""
-    linv = state.graphs.linv
-    if linv is None:
-        return _ops_solve(cfg, state.ops, b)
-    p = state.ops.pvec[:, None]
-    rhs = b / p
-    y = linv.T @ (linv @ rhs)
-    y = y + linv.T @ (linv @ (rhs - state.ops.M @ y))
-    return y / p
-
-
 def setup_eval(cfg: GpConfig, spec: DataSpec, data: GpData, hp: Hypers,
                eta_const: float, calc_cond: bool = False) -> EvalState:
-    """Factorize the varK-normalized covariance and cache Keta^-1 (y - m),
-    in the predict precision (the module note)."""
-    dt = _predict_dtype(cfg)
+    """Factorize the varK-normalized covariance, choose its solve and cache
+    Keta^-1 (y - m) through the factor (refined where the state's solve
+    refines), in the predict precision (the module note)."""
+    dt = predict_dtype(cfg)
     data, hp = cast_float_tree(data, dt), cast_float_tree(hp, dt)
     ops = assembly.assemble_keta(
         cfg, spec, data, hp, eta_const,
@@ -209,11 +175,15 @@ def setup_eval(cfg: GpConfig, spec: DataSpec, data: GpData, hp: Hypers,
     if pad_mask is not None:
         vand = vand * pad_mask[:, None]
         data_vec = data_vec * pad_mask
-    invK_fdiff = _ops_solve(cfg, ops, data_vec - vand @ hp.beta)
+    graph_set = PredictGraphs()
+    solve = choose_solve(cfg, ops, graph_set.counts)
+    factor_solve = ops.solve if isinstance(solve, InverseSolve) else solve
+    invK_fdiff = factor_solve((data_vec - vand @ hp.beta)[:, None])[:, 0]
     cond = (assembly.calc_cond(ops, cfg.cond_norm) if calc_cond
             else torch.tensor(float("nan")))
     return EvalState(ops=ops, invK_fdiff=invK_fdiff, hp=hp, cond=cond,
-                     pad_mask=pad_mask, idx_grad=idx, graphs=PredictGraphs())
+                     pad_mask=pad_mask, idx_grad=idx, graphs=graph_set,
+                     solve=solve)
 
 
 def spec_tensors(spec: DataSpec, x: torch.Tensor):
@@ -229,9 +199,9 @@ def spec_tensors(spec: DataSpec, x: torch.Tensor):
     return pad_mask, idx
 
 
-def _cross_cov(cfg: GpConfig, spec: DataSpec, x_train, xq, hp: Hypers,
-               pad_mask: Optional[torch.Tensor],
-               idx: Optional[torch.Tensor]):
+def cross_cov(cfg: GpConfig, spec: DataSpec, x_train, xq, hp: Hypers,
+              pad_mask: Optional[torch.Tensor],
+              idx: Optional[torch.Tensor]):
     """Kyx (n_data, nx) and dKxy_dx (nx*dim, n_data): cross covariance of the
     training data (values + used gradients) with the query points and with
     the query-point derivatives, with the pad mask and gradient index of
@@ -269,7 +239,7 @@ def _hess_terms(cfg, spec, data, state, xq, Kxy_invK, dKxy_dx):
                             use_grad=spec.use_grad, idx_g2=state.idx_grad)
     Ht = H.reshape(dim, dim, nx, N)
     term1 = torch.einsum("kiqm,qm->qki", Ht, Kxy_invK)
-    solve_dK = _solve(cfg, state, dKxy_dx.T)               # (n_data, nx*d)
+    solve_dK = state.solve(dKxy_dx.T)                      # (n_data, nx*d)
     D = dKxy_dx.reshape(dim, nx, N)
     S = solve_dK.T.reshape(dim, nx, N)
     term2h = torch.einsum("kqm,iqm->qki", D, S)
@@ -280,12 +250,11 @@ def _predict(fn, cfg, spec, data, state, xq, calc_grad, calc_hess):
     """fn's outputs at xq, tensors that the caller owns: through the state's
     graphs on a CUDA device with autograd off, else eagerly (the module
     note)."""
-    graphs = state.graphs
     if not xq.is_cuda or torch.is_grad_enabled():
-        graphs.counts["eager"] += 1
+        state.graphs.counts["eager"] += 1
         return fn(cfg, spec, data, state, xq, calc_grad, calc_hess)
-    cap = graphs.replay(fn, cfg, spec, data, state, xq, calc_grad, calc_hess)
-    return tuple(_split(cap.flat.clone(), cap.shapes))
+    return tuple(state.graphs.replay(fn, cfg, spec, data, state, xq,
+                                     calc_grad, calc_hess))
 
 
 def _split(flat, shapes):
@@ -302,12 +271,18 @@ def _split(flat, shapes):
     return out
 
 
+def _pack(out):
+    """The tensors of out in one flat buffer, and their shapes (None where
+    a tensor is None)."""
+    return (torch.cat([v.reshape(-1) for v in out if v is not None]),
+            [None if v is None else tuple(v.shape) for v in out])
+
+
 def to_host(out) -> list:
     """The tensors of out as numpy arrays (None kept), through one copy to
     the host: they are gathered into one buffer on the device first."""
-    flat = torch.cat([v.reshape(-1) for v in out if v is not None])
-    return _split(flat.cpu().numpy(),
-                  [None if v is None else tuple(v.shape) for v in out])
+    flat, shapes = _pack(out)
+    return _split(flat.cpu().numpy(), shapes)
 
 
 def eval_model(cfg: GpConfig, spec: DataSpec, data: GpData, state: EvalState,
@@ -332,14 +307,14 @@ def _eval_model(cfg, spec, data, state, xq, calc_grad, calc_hess):
     """The eager body of ``eval_model``."""
     hp = state.hp
     nx, dim = xq.shape
-    dt = _predict_dtype(cfg)
+    dt = predict_dtype(cfg)
     data, xq = cast_float_tree(data, dt), xq.to(dt)
     varK = hp.varK
     sigK = torch.sqrt(varK)
 
-    Kyx, dKxy_dx = _cross_cov(cfg, spec, data.x, xq, hp, state.pad_mask,
-                              state.idx_grad)
-    Kxy_invK = _solve(cfg, state, Kyx).T                  # (nx, n_data)
+    Kyx, dKxy_dx = cross_cov(cfg, spec, data.x, xq, hp, state.pad_mask,
+                             state.idx_grad)
+    Kxy_invK = state.solve(Kyx).T                          # (nx, n_data)
     mval, mgrad, mhess = mean.eval_mean_fun(cfg.mean_fun_type, xq, hp.beta)
 
     mu = mval + Kyx.T @ state.invK_fdiff
@@ -372,13 +347,13 @@ def _eval_model_var(cfg, spec, data, state, xq, calc_grad, calc_hess):
     """The eager body of ``eval_model_var``."""
     hp = state.hp
     nx, dim = xq.shape
-    dt = _predict_dtype(cfg)
+    dt = predict_dtype(cfg)
     data, xq = cast_float_tree(data, dt), xq.to(dt)
     varK = hp.varK
 
-    Kyx, dKxy_dx = _cross_cov(cfg, spec, data.x, xq, hp, state.pad_mask,
-                              state.idx_grad)
-    Kxy_invK = _solve(cfg, state, Kyx).T
+    Kyx, dKxy_dx = cross_cov(cfg, spec, data.x, xq, hp, state.pad_mask,
+                             state.idx_grad)
+    Kxy_invK = state.solve(Kyx).T
     sig2 = varK * torch.clamp_min(1.0 - torch.sum(Kyx.T * Kxy_invK, dim=1), 0.0)
 
     dsig2dx = d2sig2dx2 = None

@@ -32,7 +32,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from . import cuda_assembly, kernels, rtensor
+from . import cuda_assembly, graphs, kernels, rtensor
 
 
 # iterations between two reads of the convergence flags on the host: each
@@ -248,23 +248,17 @@ def mbcg(matvec: Callable, B: torch.Tensor, max_iters: int = 100,
     use_graph = B.is_cuda if graph is None else graph
     warm = 2 if use_graph and max_iters > 2 else max_iters
     finished = False
-    # the first iterations run eagerly (on a side stream where a graph
-    # follows, as capture asks: library handles and workspaces exist then)
-    stream, ctx = None, contextlib.nullcontext()
-    if warm < max_iters:
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        ctx = torch.cuda.stream(stream)
-    with ctx:
+    # the first iterations run eagerly, on the capture stream where a graph
+    # follows (ops/graphs.py: library handles exist before the capture)
+    with (graphs.on_side(dev) if warm < max_iters
+          else contextlib.nullcontext()):
         for k in range(warm):
             s.update(matvec(s.P), lambda a, b: (alphas[k].copy_(a),
                                                 betas[k].copy_(b)))
             if (k + 1) % check_every == 0 and bool(s.done.all()):
                 finished = True
                 break
-    if stream is not None:
-        torch.cuda.current_stream(dev).wait_stream(stream)
-    if stream is not None and not finished:
+    if warm < max_iters and not finished:
         Ap = torch.empty_like(B)
         row = torch.full((1,), warm, dtype=torch.int64, device=dev)
 
@@ -272,23 +266,13 @@ def mbcg(matvec: Callable, B: torch.Tensor, max_iters: int = 100,
             alphas.index_copy_(0, row, a[None])
             betas.index_copy_(0, row, b[None])
             row.add_(1)
-        # capture on a side stream with the bare API: torch.cuda.graph's
-        # context also collects garbage and empties the cache, ~0.1 s a solve
-        g = torch.cuda.CUDAGraph()
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            g.capture_begin()
-            try:
-                s.update(Ap, record)
-            finally:
-                g.capture_end()
-        torch.cuda.current_stream(dev).wait_stream(stream)
+        with graphs.on_side(dev):
+            g, _ = graphs.capture(lambda: s.update(Ap, record))
         for k in range(warm, max_iters):
             Ap.copy_(matvec(s.P))
             g.replay()
             if (k + 1) % check_every == 0 and bool(s.done.all()):
                 break
-        del g
     res = torch.linalg.vector_norm(s.R, dim=0) / s.b_norm
     return MbcgResult(X=s.X, alphas=alphas, betas=betas, residnorm=res,
                       n_iter=iters_run(alphas))

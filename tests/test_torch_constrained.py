@@ -18,7 +18,7 @@ from gpgradpy_tpu.model import assembly as jassembly
 from gpgradpy_tpu.model import rescale as jrescale
 from gpgradpy_tpu.ops import linalg as jlinalg
 import gpgradpy_torch as tgp
-from gpgradpy_torch import GaussianProcess
+from gpgradpy_torch import GaussianProcess, convert
 from gpgradpy_torch.bo.problems import rosenbrock
 from gpgradpy_torch.fit import scipy_driver as tsd
 from gpgradpy_torch.model import assembly as tassembly
@@ -298,8 +298,8 @@ CASES = {
     # on other data the two stop up to 2.5e-6 apart in -ln L (ROADMAP
     # Queue 3, flat optima)
     "dflt_vmax": (dict(wellcond_mtd="dflt_vmax"), (1, 10, None)),
-    # trust-constr stops on its trust radius; on this problem both packages
-    # reach the same point
+    # trust-constr stops on its trust radius, where round-off decides
+    # (THETA_RTOL)
     "trust_constr": (dict(wellcond_mtd="base", optz_mtd="trust-constr",
                           cond_max=1e8, cond_max_target=1e8), (0, 10, None)),
     "precon_slsqp": (dict(wellcond_mtd="precon", optz_mtd="slsqp"),
@@ -320,7 +320,8 @@ def _case_data(seed, n, noise, d=2):
     return x, f, g, xq
 
 
-def _facade_fit(cls, name, **extra):
+def _facade_fit(cls, name, hp_vals=None, **extra):
+    """The case's facade fitted on its data, or set at ``hp_vals``."""
     kw, (seed, n, noise) = CASES[name]
     kw = dict(kw, **extra)
     x, f, g, _ = _case_data(seed, n, noise)
@@ -333,7 +334,10 @@ def _facade_fit(cls, name, **extra):
         gp.set_data(x, f, std, g, None if noise else np.zeros((n, 2)))
     else:
         gp.set_data(x, f, std)
-    gp.set_hpara("optz", 0)
+    if hp_vals is None:
+        gp.set_hpara("optz", 0)
+    else:
+        gp.set_hpara("set", 0, hp_vals=hp_vals)
     return gp
 
 
@@ -358,12 +362,23 @@ def _close(got, want):
                                atol=1e-3 * np.max(np.abs(want)))
 
 
+# theta's rtol where it is not 1e-3: trust-constr stops on its trust radius
+# at a point that round-off moves along the likelihood's valley.  Over the
+# four BLAS paths of MKL and ATen the port stops 0 to 1.3e-3 from JAX's
+# theta, with -ln L 5.8e-7 apart at most (held to 1e-6 below; ROADMAP.md's
+# accepted stopping points lie up to 2.5e-6 apart), and the predictions'
+# sig gradient moves with the stop, up to 2.5e-3 of its largest entry: in
+# these cases the port predicts at the JAX fit's hyperparameters.
+THETA_RTOL = {"trust_constr": 5e-3}
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_facade_fit_matches_jax(fitted, name):
     """-ln L rtol 1e-6; the condition number at the optimum within
-    1.01 cond_max in both; theta, the rescaling's xvec_scale (so the loop
-    chose the same iteration) and the predictions with their gradients
-    rtol 1e-3 (see _close)."""
+    1.01 cond_max in both; theta (rtol 1e-3, or THETA_RTOL's), the
+    rescaling's xvec_scale (so the loop chose the same iteration) and the
+    predictions with their gradients rtol 1e-3 (see _close; for the cases
+    of THETA_RTOL from the JAX fit's hyperparameters)."""
     gp_t, gp_j = fitted(name)
     h_t, h_j = gp_t.history, gp_j.history
     np.testing.assert_allclose(h_t.ln_lkd[0], h_j.ln_lkd[0], rtol=1e-6)
@@ -371,11 +386,18 @@ def test_facade_fit_matches_jax(fitted, name):
         cmax = gp_t.cfg.cond_max
         assert h_t.Kcov_cond[0] <= 1.01 * cmax
         assert h_j.Kcov_cond[0] <= 1.01 * cmax
-    np.testing.assert_allclose(h_t.hp_theta[0], h_j.hp_theta[0], rtol=1e-3)
+    np.testing.assert_allclose(h_t.hp_theta[0], h_j.hp_theta[0],
+                               rtol=THETA_RTOL.get(name, 1e-3))
     np.testing.assert_allclose(h_t.xvec_rescaling[0], h_j.xvec_rescaling[0],
                                rtol=1e-3)
     np.testing.assert_array_equal(h_t.vmin_req_grad, h_j.vmin_req_grad)
     xq = _case_data(*CASES[name][1])[3]
+    if name in THETA_RTOL:
+        gp_t = _facade_fit(GaussianProcess, name, device="cpu",
+                           hp_vals=convert.hypers_from_numpy(
+                               {k: None if v is None else np.asarray(v)
+                                for k, v in gp_j.hp_vals._asdict().items()},
+                               device="cpu"))
     for got, want in zip(gp_t.eval_model(xq, calc_grad=True),
                          gp_j.eval_model(xq, calc_grad=True)):
         if want is not None:

@@ -321,19 +321,21 @@ def test_iterative_with_the_mesh_matches_jax(jax_refs, ranks, world):
     varK (rtol 1e-8) of the noise-free and noisy MLL, -ln L (1e-8) and its
     determinant-free gradient (rtol 1e-6; theta and varK in the noisy
     regime), and the predict's mu (rtol 1e-7, atol 1e-9) and sig (rtol
-    1e-5, atol 1e-9): the mesh-free tests' tolerances.  The CG count: equal
-    on the noise-free problem (221 iterations); on the noisy one CG runs
-    past its 48 rows (122 in the JAX package), where round-off in the last
-    residuals decides the stop, and the two packages stop within 5 of each
-    other (test_torch_iterative.py holds counts at cond 1e2 for that
-    reason)."""
+    1e-5, atol 1e-9): the mesh-free tests' tolerances.  The CG counts
+    within 5 of the JAX package's (ROADMAP.md's accepted difference for
+    the mesh): CG runs past its 48 rows on both problems (221 iterations in
+    the JAX package without noise, 122 with it), where round-off in the
+    last residuals decides the stop (221-224 without noise over the four
+    BLAS paths of MKL and ATen; test_torch_iterative.py holds counts at
+    cond 1e2 for that reason)."""
     r = ranks[world][0]
     for name in ("mll", "noisy"):
         for k in ("ln_lkd", "beta", "varK"):
             close(r[f"{name}_{k}"], jax_refs[f"{name}_{k}"], rtol=1e-8)
         assert float(r[f"{name}_cg_resid"]) < 1e-8
-    assert int(r["mll_cg_iters"]) == int(jax_refs["mll_cg_iters"])
-    assert abs(int(r["noisy_cg_iters"]) - int(jax_refs["noisy_cg_iters"])) <= 5
+    for name in ("mll", "noisy"):
+        assert abs(int(r[f"{name}_cg_iters"])
+                   - int(jax_refs[f"{name}_cg_iters"])) <= 5
     for name in ("mll", "noisy"):
         close(r[f"{name}_val"], jax_refs[f"{name}_val"], rtol=1e-8)
         close(r[f"{name}_grad"], jax_refs[f"{name}_grad"], rtol=1e-6)

@@ -11,11 +11,14 @@ eval_model_var, under ``precon``, ``rescale_origin``, a padded partial
 gradient set and the refined predict; a call's results survive the next
 call; the counter shows one capture per key and replays after it, and a
 new state starts a fresh count.  The graphed predict, which solves through
-the inverse of the factor that a float64 state keeps from its first
-capture, stays within the factor solves' own rounding, also at N 1771.
+the inverse of the factor that a float64 state builds on its first query,
+stays within the factor solves' own rounding, also at N 1771; an eager
+query answers the same before and after a graphed one.
 
     python -m pytest tests/test_torch_predict_graph.py -q -m card
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -69,10 +72,11 @@ def _args(gp):
     return gp.cfg_predict, gp.spec, gp.data, gp._eval_state
 
 
-def _accurate_solve(cfg, ops, b):
+def _accurate_solve(ops, b):
     """Keta^-1 b refined to the rounding of long double (80-bit on
     x86-64): factor solves of residuals taken in long double on the host;
-    on b's device."""
+    on b's device.  A state's solve: ``functools.partial(_accurate_solve,
+    ops)``."""
     L = ops.fac.L.cpu().double()
     M = ops.M.cpu().numpy().astype(np.longdouble)
     p = ops.pvec.cpu().numpy().astype(np.longdouble)[:, None]
@@ -134,10 +138,10 @@ def test_cross_cov_with_state_tensors_equals_per_call(pad, partial):
     assert (state.idx_grad is not None) == (pad > 0 or partial)
     xq = _query(gp, 5, 3)
     hp = state.hp
-    got = predict._cross_cov(cfg, spec, data.x, xq, hp, state.pad_mask,
-                             state.idx_grad)
-    fresh = predict._cross_cov(cfg, spec, data.x, xq, hp,
-                               *predict.spec_tensors(spec, data.x))
+    got = predict.cross_cov(cfg, spec, data.x, xq, hp, state.pad_mask,
+                            state.idx_grad)
+    fresh = predict.cross_cov(cfg, spec, data.x, xq, hp,
+                              *predict.spec_tensors(spec, data.x))
     for g, f in zip(got, fresh):
         torch.testing.assert_close(g, f, rtol=0, atol=0)
     # the plain gradient-enhanced cross kernel: rows the training data
@@ -229,20 +233,24 @@ def test_graph_equals_eager_on_the_card(card, models, name):
 
 @pytest.mark.card
 @pytest.mark.parametrize("name", sorted(MODELS) + sorted(N_EVAL))
-def test_inverse_solve_equals_factor_solve_on_the_card(card, models, name,
-                                                       monkeypatch):
+def test_inverse_solve_equals_factor_solve_on_the_card(card, models, name):
     """The graphed predict of a float64 state, which solves through the
-    inverse its first capture kept, against the eager body of the same
+    inverse its first query built, against the eager body of the same
     state without it (the factor solves), each output as its largest gap
-    over its largest value, m 1-17, every flag, both bodies: <= 1e-7, as
-    on the CPU (tests/test_torch_predict_inverse.py), where the gap is the
-    two paths' own rounding at cond(M) ~1e10.  And mu, sig and their
-    gradients against a solve refined in long double: the inverse's error
-    at most 4 times the factor solve's, plus 1e-13.  The refined predict
-    keeps no inverse."""
+    over its largest value, m 1-17, every flag, both bodies: <= 1e-7, the
+    two paths' own rounding (the card's one cuBLAS path reads <= 1.6e-8;
+    tests/test_torch_predict_inverse.py holds the CPU's several BLAS paths
+    in units of eps cond(M)).  And mu, sig and their gradients against a
+    solve refined in long double: the inverse's error at most 4 times the
+    factor solve's, plus 1e-13.  The refined predict keeps no inverse."""
     gp = _model(models, name)
     cfg, spec, data, state = _args(gp)
-    factor = state._replace(graphs=predict.PredictGraphs())
+    factor = state._replace(
+        graphs=predict.PredictGraphs(),
+        solve=(state.ops.solve if isinstance(state.solve, predict.InverseSolve)
+               else state.solve))
+    accurate = factor._replace(
+        solve=functools.partial(_accurate_solve, state.ops))
     gap = err_inv = err_fac = 0.0
     with torch.no_grad():
         for m in range(1, 18):
@@ -258,10 +266,8 @@ def test_inverse_solve_equals_factor_solve_on_the_card(card, models, name,
                         gap = max(gap, _rel(g, w))
             got = predict.eval_model(cfg, spec, data, state, xq, True)
             fac = predict._eval_model(cfg, spec, data, factor, xq, True, False)
-            with monkeypatch.context() as mp:
-                mp.setattr(predict, "_ops_solve", _accurate_solve)
-                ref = predict._eval_model(cfg, spec, data, factor, xq, True,
-                                          False)
+            ref = predict._eval_model(cfg, spec, data, accurate, xq, True,
+                                      False)
             for g, f, r in zip(got, fac, ref):
                 err_inv = max(err_inv, _rel(g, r))
                 err_fac = max(err_fac, _rel(f, r))
@@ -269,7 +275,7 @@ def test_inverse_solve_equals_factor_solve_on_the_card(card, models, name,
     print(f"[inverse] {name} N {spec.n_data_tot} inverse_builds {builds} "
           f"gap {gap:.3e} error: inverse {err_inv:.3e} factor {err_fac:.3e}")
     assert builds == (0 if name == "refined" else 1)
-    assert (state.graphs.linv is None) == (name == "refined")
+    assert isinstance(state.solve, predict.InverseSolve) == (name != "refined")
     assert gap <= 1e-7, gap
     assert err_inv <= 4.0 * err_fac + 1e-13, (err_inv, err_fac)
 
@@ -302,6 +308,30 @@ def test_results_survive_the_next_call_on_the_card(card, models):
         np.testing.assert_array_equal(a, b)
     for a, b in zip(served, served_kept):
         assert torch.equal(a, b)
+
+
+@pytest.mark.card
+def test_eager_answer_is_the_same_before_and_after_a_graph(card, models):
+    """A state's solve is chosen once: an eager query (autograd on) gives
+    bitwise the same answer before the state's first graphed query and
+    after it, and the state builds its inverse once."""
+    gp = _model(models, "precon")
+    gp.set_hpara("current", 0)          # a fresh state
+    args = _args(gp)
+    xq = _query(gp, 3, 21)
+
+    def eager():
+        with torch.enable_grad():
+            return [v.detach().clone()
+                    for v in predict.eval_model(*args, xq, True, True)]
+    before = eager()
+    with torch.no_grad():
+        predict.eval_model(*args, xq, True, True)
+    after = eager()
+    for b, a in zip(before, after):
+        assert torch.equal(b, a)
+    assert predict.graph_counts(gp._eval_state) == {
+        "captures": 1, "replays": 0, "eager": 2, "inverse_builds": 1}
 
 
 @pytest.mark.card

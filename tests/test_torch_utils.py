@@ -4,12 +4,15 @@ scalar-kernel oracle, against the JAX package (CPU, float64).
 Tolerances: the telemetry text equal to the JAX package's line by line,
 but for the option line of the field only the JAX config has
 (``use_pallas``) and, after each package's own fits, the timing and
-iteration columns of the optimization table (test_txt_info_matches_jax);
+iteration columns of the optimization table and the float cells, held to
+one unit of their last printed digit (test_txt_info_matches_jax);
 ``lkd_grid`` to rtol 1e-9 at rows with cond < 1e9, 1e-7 at the others;
 ``test_grad_calc`` equal; ``gamma2theta`` equal, ``scalar_kernel`` and its
 autograd derivatives to rtol 1e-12 of the JAX package's and 1e-12 of the
 port's closed-form blocks.
 """
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -81,12 +84,48 @@ def _lines(text, drop_cols=()):
     return lines
 
 
+_PRINTED_FLOAT = re.compile(r"-?\d+(\.\d*)?(e[+-]\d+)?$")
+
+
+def _last_digit(tok):
+    """One unit in the last printed digit of a float cell ("7.153e+08" ->
+    1e5, "17.531" -> 1e-3)."""
+    mant, _, exp = tok.partition("e")
+    return 10.0 ** (int(exp or 0) - len(mant.partition(".")[2]))
+
+
+def _agree_as_printed(lines_t, lines_j):
+    """The lines equal but for float cells (with a point or an exponent)
+    that lie within one unit of their last printed digit of each other:
+    two values a rounding boundary apart print differently however close
+    they are."""
+    assert len(lines_t) == len(lines_j)
+    for lt, lj in zip(lines_t, lines_j):
+        if lt == lj:
+            continue
+        ct = lt if isinstance(lt, list) else lt.split()
+        cj = lj if isinstance(lj, list) else lj.split()
+        assert len(ct) == len(cj), (lt, lj)
+        for a, b in zip(ct, cj):
+            if a == b:
+                continue
+            assert ("." in a + b or "e" in a + b) and all(
+                _PRINTED_FLOAT.match(c) for c in (a, b)), (lt, lj)
+            assert abs(float(a) - float(b)) <= 1.000001 * max(
+                _last_digit(a), _last_digit(b)), (lt, lj)
+
+
 def test_txt_info_matches_jax():
-    """After the same rounds the texts agree but for the option line of
-    the JAX-only field, the timing columns and the L-BFGS iteration
-    columns: on this flat 1-D likelihood the two optimizers stop one
-    iteration apart (ROADMAP Queue 3, "Flat optima").  With the JAX
-    package's history loaded into the port's facade, the texts agree but
+    """After the same rounds the texts agree, as printed (each float cell
+    within one unit of its last digit: the fitted optimum's cond(M) reads
+    7.1520e8 on one BLAS path and 7.1527e8 in the JAX package), but for
+    the option line of the JAX-only field, the timing columns and the
+    L-BFGS iteration columns.  On this flat 1-D likelihood the two
+    optimizers stop up to two iterations apart (7 to 9 over the BLAS paths
+    against JAX's 7), a count that rests on round-off: where they stop is
+    held instead, -ln L to rtol 1e-9 and theta to 2e-5 (ROADMAP.md, "Flat
+    optima"; readings <= 6.2e-10 and 8.9e-6).  With the JAX package's
+    history loaded into the port's facade, the texts agree exactly but
     for the option lines."""
     gp_t = _rounds(GaussianProcess(1, True, "SqExp", "precon", device="cpu"))
     gp_j = _rounds(JaxGP(1, True, "SqExp", "precon"))
@@ -95,10 +134,13 @@ def test_txt_info_matches_jax():
                if ln.split(" = ")[0].strip() in JAX_ONLY_OPTIONS]
     assert len(skipped) == len(JAX_ONLY_OPTIONS)
     assert "Theta history:" in text_t and "cond_at_max" in text_t
-    assert (_lines(text_t, drop_cols=(2, 3, 8, 9, 10))
-            == _lines(text_j, drop_cols=(2, 3, 8, 9, 10)))
-    np.testing.assert_allclose(gp_t.history.hp_optz_iter_max[1],
-                               gp_j.history.hp_optz_iter_max[1], atol=1)
+    _agree_as_printed(_lines(text_t, drop_cols=(2, 3, 8, 9, 10)),
+                      _lines(text_j, drop_cols=(2, 3, 8, 9, 10)))
+    h_t, h_j = gp_t.history, gp_j.history
+    np.testing.assert_allclose(h_t.ln_lkd[1], h_j.ln_lkd[1], rtol=1e-9)
+    np.testing.assert_allclose(h_t.hp_theta[1], h_j.hp_theta[1], rtol=2e-5)
+    for h in (h_t, h_j):
+        assert 1 <= h.hp_optz_iter_max[1] < gp_t.cfg.optz_iter_max
 
     gp_t.load_data_surr(all_data=gp_j.export_data_surr(save2file=False))
     assert _lines(gp_t.get_txt_info_surr()) == _lines(text_j)

@@ -7,7 +7,8 @@ facade (a graph replay), of the eager body with the four outputs copied to
 the host one by one (the facade's path without the graphs), and of the
 first call of a new key on a fresh state (warm-up, capture, first replay;
 at m = 1 also the build of the inverse of the factor that the state keeps).
-Then the graph counter, the time of one build of that inverse, and the
+Then the graph counter, the time of a new state solve's first call (the
+build of that inverse, ``predict.choose_solve``, and one solve), and the
 device time the profiler sees in a window of replays, with the kernels
 that take most of it (kernels inside a graph replay are traced as
 kernels).
@@ -88,13 +89,17 @@ def main():
               f"{1e3 * statistics.median(t_e):.4f} {1e3 * first:.3f}")
     print("[counts]", predict.graph_counts(gp._eval_state))
     ops, t_inv = gp._eval_state.ops, []
+    b = torch.zeros_like(gp._eval_state.invK_fdiff)[:, None]
     for _ in range(5):
+        counts = {"inverse_builds": 0}
+        solve = predict.choose_solve(cfg, ops, counts)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        predict.PredictGraphs().build_inverse(ops)
+        solve(b)
         torch.cuda.synchronize()
         t_inv.append(time.perf_counter() - t0)
-    print(f"[inverse] N {ops.fac.L.shape[-1]} build ms: first "
+        assert counts["inverse_builds"] == 1
+    print(f"[inverse] N {ops.fac.L.shape[-1]} build + one solve ms: first "
           f"{1e3 * t_inv[0]:.3f}, median {1e3 * statistics.median(t_inv):.3f}")
 
     from torch.profiler import ProfilerActivity, profile
